@@ -1,0 +1,14 @@
+"""PyTorch/CUDA port of ``music_synthesis_tpu`` for NVIDIA Hopper (H100).
+
+The JAX package is the reference; this package mirrors its module names so
+each module's counterpart is easy to find, and imports nothing from it.
+Entry points (``serve.SynthService``, ``infer.copy_synthesis``) run on
+``cuda`` unless the caller passes ``device="cpu"``.
+
+The one TPU kernel of the reference, the fused log-mel front-end, is a
+hand-written CUDA kernel here (``csrc/logmel.cu``, wrapped by
+``ops/logmel.py``), built with ``nvcc`` at first use and bound with
+``ctypes``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,97 @@
+"""Two-stage inference (counterpart of ``infer/generate.py``).
+
+``z -> composer mel -> overlapping chunks -> vocoder -> windowed overlap-add
+-> waveform``. Chunks fold into the batch axis, so the vocoder sees one
+batch. The composer and vocoder are ``nn.Module``s built from the configs in
+``cfg`` (``models/specgan.py``, ``models/vocoder.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from music_synthesis_tpu_torch.config import PipelineConfig
+from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
+from music_synthesis_tpu_torch.models.vocoder import Vocoder
+from music_synthesis_tpu_torch.ops.overlap_add import (
+    ola_normalizer,
+    ola_window,
+    overlap_add,
+)
+
+__all__ = [
+    "chunk_frames",
+    "vocode_chunked",
+    "generate",
+    "generate_direct",
+    "generate_long",
+    "stitch_long_mel",
+]
+
+
+def chunk_frames(mel: torch.Tensor, chunk: int, hop: int) -> torch.Tensor:
+    """``[B, T, M] -> [B, N, chunk, M]`` overlapping frame chunks,
+    N = 1 + (T - chunk) // hop; (T - chunk) must be a multiple of hop."""
+    t = mel.shape[-2]
+    if (t - chunk) % hop:
+        raise ValueError(
+            f"n_frames={t} incompatible with chunk={chunk}, hop={hop}")
+    return mel.unfold(-2, chunk, hop).transpose(-1, -2)
+
+
+def vocode_chunked(vocoder: Vocoder, mel: torch.Tensor,
+                   cfg: PipelineConfig) -> torch.Tensor:
+    """Chunked vocoding + windowed OLA: ``[B, T, M] -> [B, T * hop_audio]``."""
+    ic = cfg.infer
+    hop_audio = cfg.vocoder.hop_length
+    chunks = chunk_frames(mel, ic.chunk_frames, ic.hop_frames)
+    b, n, c, m = chunks.shape
+    wav_chunks = vocoder(chunks.reshape(b * n, c, m)).reshape(b, n, c * hop_audio)
+    step = ic.hop_frames * hop_audio
+    window = ola_window(c * hop_audio, step, device=mel.device)
+    out = overlap_add(wav_chunks * window, step)
+    return out / ola_normalizer(window, n, step)
+
+
+def generate(cfg: PipelineConfig, composer: SpectrogramGenerator,
+             vocoder: Vocoder, z: torch.Tensor) -> torch.Tensor:
+    """Latent ``[B, Z]`` -> waveform ``[B, L]`` through the chunked vocoder."""
+    return vocode_chunked(vocoder, composer(z), cfg)
+
+
+def generate_direct(cfg: PipelineConfig, composer: SpectrogramGenerator,
+                    vocoder: Vocoder, z: torch.Tensor) -> torch.Tensor:
+    """Unchunked variant: the whole mel vocoded at once."""
+    return vocoder(composer(z))
+
+
+def generate_long(cfg: PipelineConfig, composer: SpectrogramGenerator,
+                  vocoder: Vocoder, z: torch.Tensor,
+                  crossfade_frames: int = 8) -> torch.Tensor:
+    """``z[B, N, Z] -> wav[B, L]``: N composer patches crossfaded into one
+    long mel, then the chunked vocoder."""
+    mel_long = stitch_long_mel(cfg, composer, z, crossfade_frames)
+    return vocode_chunked(vocoder, mel_long, cfg)
+
+
+def stitch_long_mel(cfg: PipelineConfig, composer: SpectrogramGenerator,
+                    z: torch.Tensor, crossfade_frames: int) -> torch.Tensor:
+    """``z[B, N, Z] -> mel[B, T_long, M]``: patches overlap-added over the
+    frame axis with hop ``n_frames - crossfade_frames``, trimmed so that
+    ``(T_long - chunk_frames) % hop_frames == 0``."""
+    b, n, zdim = z.shape
+    t = cfg.specgan.n_frames
+    hop_t = t - crossfade_frames
+    mel = composer(z.reshape(b * n, zdim)).reshape(b, n, t, cfg.specgan.n_mels)
+    if crossfade_frames > 0:
+        window = ola_window(t, hop_t, device=z.device)
+        stacked = (mel * window[:, None]).permute(0, 3, 1, 2)  # [B, M, N, T]
+        stitched = overlap_add(stacked, hop_t)  # [B, M, T_long]
+        norm = ola_normalizer(window, n, hop_t)
+        mel_long = (stitched / norm).transpose(1, 2)
+    else:
+        mel_long = mel.reshape(b, n * t, cfg.specgan.n_mels)
+    ic = cfg.infer
+    t_long = mel_long.shape[1]
+    usable = t_long - (t_long - ic.chunk_frames) % ic.hop_frames
+    return mel_long[:, :usable]

@@ -1,0 +1,162 @@
+"""Weight-normalized 1-D convolutions (counterpart of ``ops/conv.py``).
+
+Parameters keep the JAX package's names and layout, so a Flax parameter
+tree converts to a ``state_dict`` by flattening alone (``convert.py``):
+
+- ``v``: the direction, ``[K, Cin/groups, Cout]`` (JAX's HIO);
+- ``g``: the per-output-channel gain ``[Cout]`` (only with weight norm);
+- ``b``: the bias ``[Cout]``.
+
+The kernel is ``g * v / sqrt(sum(v^2) + 1e-12)`` with the norm over every
+axis except Cout, and is permuted (and, for the transposed convolution,
+flipped) into PyTorch's layout inside ``forward``. Activations are PyTorch's
+``[B, C, L]``. With ``compute_dtype="bfloat16"`` the parameters stay fp32 and
+the input, kernel and bias are cast, so activations flow onward in bf16.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = ["WNConv", "WNConvTranspose1d", "conv_transpose_padding"]
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _init_std(scheme: str, init_scale: float, fan_in: int,
+              gain: float = 1.0) -> float:
+    """Init std of ``v``: 'dcgan' N(0, init_scale), 'he' N(0, sqrt(2/fan_in))."""
+    if scheme == "he":
+        return float(gain * (2.0 / max(fan_in, 1)) ** 0.5)
+    if scheme != "dcgan":
+        raise ValueError(f"unknown init_scheme {scheme!r}")
+    return gain * init_scale
+
+
+def _normalize(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """``g * v / ||v||`` with the norm over all axes but the last (Cout)."""
+    dims = tuple(range(v.ndim - 1))
+    norm = torch.sqrt(torch.sum(v * v, dim=dims) + 1e-12)
+    return v * (g / norm)
+
+
+class _WNBase(nn.Module):
+    """Holds ``v`` (and ``g``, ``b``) and computes the normalized kernel."""
+
+    def __init__(self, kshape: tuple[int, ...], fan_in: int, *,
+                 use_weight_norm: bool, use_bias: bool, init_scale: float,
+                 init_scheme: str, init_gain: float, compute_dtype: str,
+                 generator: torch.Generator | None):
+        super().__init__()
+        if compute_dtype not in _DTYPES:
+            raise ValueError(f"unsupported compute_dtype {compute_dtype!r}")
+        self.compute_dtype = _DTYPES[compute_dtype]
+        std = _init_std(init_scheme, init_scale, fan_in, init_gain)
+        v = torch.empty(kshape).normal_(0.0, std, generator=generator)
+        self.v = nn.Parameter(v)
+        self.use_weight_norm = use_weight_norm
+        if use_weight_norm:
+            dims = tuple(range(v.ndim - 1))
+            self.g = nn.Parameter(torch.sqrt(torch.sum(v * v, dim=dims) + 1e-12))
+        self.b = nn.Parameter(torch.zeros(kshape[-1])) if use_bias else None
+
+    def kernel(self) -> torch.Tensor:
+        """The effective kernel in the JAX layout ``[K, Cin/groups, Cout]``."""
+        return _normalize(self.v, self.g) if self.use_weight_norm else self.v
+
+    def _bias(self) -> torch.Tensor | None:
+        return None if self.b is None else self.b.to(self.compute_dtype)
+
+
+class WNConv(_WNBase):
+    """1-D convolution ``[B, Cin, L] -> [B, Cout, L']`` with explicit padding.
+
+    padding: 'same' (torch-style symmetric zeros, total ``d*(k-1)`` with the
+    extra sample on the right), 'reflect' (the same amounts, reflected) or
+    'valid'.
+    """
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int, *,
+                 stride: int = 1, dilation: int = 1, groups: int = 1,
+                 padding: str = "same", use_weight_norm: bool = True,
+                 use_bias: bool = True, init_scale: float = 0.02,
+                 init_scheme: str = "dcgan", init_gain: float = 1.0,
+                 compute_dtype: str = "float32",
+                 generator: torch.Generator | None = None):
+        if in_channels % groups:
+            raise ValueError(f"in_channels {in_channels} not divisible by "
+                             f"groups {groups}")
+        if padding not in ("same", "reflect", "valid"):
+            raise ValueError(f"unsupported padding {padding!r}")
+        super().__init__(
+            (kernel_size, in_channels // groups, features),
+            (in_channels // groups) * kernel_size,
+            use_weight_norm=use_weight_norm, use_bias=use_bias,
+            init_scale=init_scale, init_scheme=init_scheme,
+            init_gain=init_gain, compute_dtype=compute_dtype,
+            generator=generator)
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.padding = padding
+        total = dilation * (kernel_size - 1)
+        self.pads = (0, 0) if padding == "valid" else (total // 2,
+                                                       total - total // 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.pads != (0, 0):
+            mode = "reflect" if self.padding == "reflect" else "constant"
+            x = F.pad(x, self.pads, mode=mode)
+        w = self.kernel().permute(2, 1, 0)  # [Cout, Cin/g, K]
+        cdt = self.compute_dtype
+        return F.conv1d(x.to(cdt), w.to(cdt), self._bias(), stride=self.stride,
+                        dilation=self.dilation, groups=self.groups)
+
+
+def conv_transpose_padding(kernel_size: int, stride: int) -> tuple[int, int]:
+    """``(pad_a, torch_padding)`` that make ``F.conv_transpose1d`` equal
+    ``lax.conv_transpose(..., padding="SAME")`` with an HIO kernel.
+
+    JAX (``transpose_kernel=False``) dilates the input by the stride, pads
+    it by ``pad_a`` before and ``k + s - 2 - pad_a`` after, and correlates
+    with the kernel as stored: ``out[t] = sum_j xd[t + j - pad_a] K[j]``.
+    ``F.conv_transpose1d`` computes ``out[t] = sum_i x[i] W[t + P - i*s]``.
+    With ``W[j'] = K[k-1-j']`` (the kernel flipped) the two agree when
+    ``P = k - 1 - pad_a``. PyTorch's output is then
+    ``(L-1)*s - 2P + k`` long, which is ``L*s`` or ``L*s + 1``; the first
+    ``L*s`` samples are JAX's output.
+    """
+    if kernel_size < stride:
+        raise ValueError("kernel_size must be >= stride")
+    pad_len = kernel_size + stride - 2
+    pad_a = kernel_size - 1 if stride > kernel_size - 1 else -(-pad_len // 2)
+    return pad_a, kernel_size - 1 - pad_a
+
+
+class WNConvTranspose1d(_WNBase):
+    """Transposed 1-D convolution ``[B, Cin, L] -> [B, Cout, L*stride]``,
+    equal to the reference's ``lax.conv_transpose(k, s, "SAME", HIO)``."""
+
+    def __init__(self, in_channels: int, features: int, kernel_size: int,
+                 stride: int, *, use_weight_norm: bool = True,
+                 use_bias: bool = True, init_scale: float = 0.02,
+                 init_scheme: str = "dcgan", init_gain: float = 1.0,
+                 compute_dtype: str = "float32",
+                 generator: torch.Generator | None = None):
+        super().__init__(
+            (kernel_size, in_channels, features),
+            in_channels * max(kernel_size // stride, 1),
+            use_weight_norm=use_weight_norm, use_bias=use_bias,
+            init_scale=init_scale, init_scheme=init_scheme,
+            init_gain=init_gain, compute_dtype=compute_dtype,
+            generator=generator)
+        self.stride = stride
+        self.torch_padding = conv_transpose_padding(kernel_size, stride)[1]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel().flip(0).permute(1, 2, 0)  # [Cin, Cout, K]
+        cdt = self.compute_dtype
+        out = F.conv_transpose1d(x.to(cdt), w.to(cdt), self._bias(),
+                                 stride=self.stride,
+                                 padding=self.torch_padding)
+        return out[..., : x.shape[-1] * self.stride]

@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Where the port's time goes on the card: a torch.profiler breakdown.
+
+    python3 scripts/profile_torch_port.py [--seed 0] [--steps 5]
+
+Profiles, after a warm-up, ``--steps`` steady calls of each of the port's
+two entry points at full width with the committed zoo weights:
+
+- copy-synthesis of [16, 8192] (``infer.copy_synthesis.CopySynthesizer``,
+  the zoo vocoder in its card's bf16);
+- one 4 s serving request (``serve.SynthService``, fp32).
+
+For each it prints the wall time per call, the device-busy share of the
+window (summed kernel time over wall time; overlapping kernels would count
+twice, and the port runs one stream), and the kernels that took the most
+device time. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+
+def profile(name: str, fn, steps: int) -> None:
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    print(f"[{name}] {steps} calls, wall {wall / steps * 1e3:.3f} ms per call, "
+          f"device busy {device_us / 1e6 / wall:.3f} of the window")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        print(f"[{name}]   {e.self_device_time_total / steps / 1e3:9.4f} ms/call "
+              f"x{e.count // steps:<4d} {e.key[:90]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--steps", type=int, default=5)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_port: no CUDA device available", file=sys.stderr)
+        return 1
+    from music_synthesis_tpu_torch.infer.copy_synthesis import CopySynthesizer
+    from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
+
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip())
+    rng = np.random.default_rng(args.seed)
+    wav = (0.3 * np.tanh(rng.standard_normal((16, 8192)))).astype(np.float32)
+    cs = CopySynthesizer("vocoder_istft")
+    x = torch.from_numpy(wav).cuda()
+    profile("copy [16, 8192]", lambda: cs(x), args.steps)
+    svc = SynthService(ServeConfig(batch_buckets=(1,), patch_buckets=(4,)))
+    profile("serve 4 s x 1", lambda: svc.synth(4.0, seed=3), args.steps)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
