@@ -48,8 +48,8 @@ namespace {
 constexpr int kBinsPerLane = 4;                // a thread's bin columns
 constexpr int kChunk = 32 * kBinsPerLane;      // 128 bins per block
 constexpr int kKC = 8;                         // samples per pipeline stage
-constexpr int kMaxMels = 128;
-constexpr int kMelsPerLane = kMaxMels / 32;    // 4
+constexpr int kMelChunk = 128;                 // mels per pass of the mel stage
+constexpr int kMelsPerLane = kMelChunk / 32;   // 4
 constexpr int kPsStride = kChunk + 4;          // keeps rows 16-byte aligned
 constexpr int kWarps = 4;                      // warps per block
 constexpr int kThreads = 32 * kWarps;
@@ -210,39 +210,42 @@ logmel_kernel(const float* __restrict__ wav, const float* __restrict__ cos_b,
   }
   __syncthreads();
 
-  // This chunk's share of the mel product: lane owns mels lane + 32 j.
-  float acc[kFpw][kMelsPerLane];
-#pragma unroll
-  for (int f = 0; f < kFpw; ++f)
-#pragma unroll
-    for (int j = 0; j < kMelsPerLane; ++j) acc[f][j] = 0.f;
+  // This chunk's share of the mel product, 128 mels at a time: lane owns
+  // mels m0 + lane + 32 j.
   const int nb = min(kChunk, n_used - bin0);
-  for (int bb = 0; bb < nb; ++bb) {
-    const float* mrow = mel + static_cast<long long>(bin0 + bb) * n_mels;
-    float mv[kMelsPerLane];
+  for (int m0 = 0; m0 < n_mels; m0 += kMelChunk) {
+    float acc[kFpw][kMelsPerLane];
 #pragma unroll
-    for (int j = 0; j < kMelsPerLane; ++j) {
-      const int m = lane + 32 * j;
-      mv[j] = m < n_mels ? __ldg(mrow + m) : 0.f;
+    for (int f = 0; f < kFpw; ++f)
+#pragma unroll
+      for (int j = 0; j < kMelsPerLane; ++j) acc[f][j] = 0.f;
+    for (int bb = 0; bb < nb; ++bb) {
+      const float* mrow = mel + static_cast<long long>(bin0 + bb) * n_mels;
+      float mv[kMelsPerLane];
+#pragma unroll
+      for (int j = 0; j < kMelsPerLane; ++j) {
+        const int m = m0 + lane + 32 * j;
+        mv[j] = m < n_mels ? __ldg(mrow + m) : 0.f;
+      }
+#pragma unroll
+      for (int f = 0; f < kFpw; ++f) {
+        const float pv = ps[warp * kFpw + f][bb];
+#pragma unroll
+        for (int j = 0; j < kMelsPerLane; ++j)
+          acc[f][j] = fmaf(pv, mv[j], acc[f][j]);
+      }
     }
 #pragma unroll
     for (int f = 0; f < kFpw; ++f) {
-      const float pv = ps[warp * kFpw + f][bb];
+      const int r = row0 + warp * kFpw + f;
+      if (r >= n_rows) continue;
 #pragma unroll
-      for (int j = 0; j < kMelsPerLane; ++j)
-        acc[f][j] = fmaf(pv, mv[j], acc[f][j]);
-    }
-  }
-#pragma unroll
-  for (int f = 0; f < kFpw; ++f) {
-    const int r = row0 + warp * kFpw + f;
-    if (r >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < kMelsPerLane; ++j) {
-      const int m = lane + 32 * j;
-      if (m < n_mels)
-        partial[(static_cast<long long>(chunk) * n_rows + r) * n_mels + m] =
-            acc[f][j];
+      for (int j = 0; j < kMelsPerLane; ++j) {
+        const int m = m0 + lane + 32 * j;
+        if (m < n_mels)
+          partial[(static_cast<long long>(chunk) * n_rows + r) * n_mels + m] =
+              acc[f][j];
+      }
     }
   }
 
@@ -254,14 +257,10 @@ logmel_kernel(const float* __restrict__ wav, const float* __restrict__ cos_b,
   __syncthreads();
   if (!s_last) return;
   __threadfence();
-#pragma unroll
   for (int f = 0; f < kFpw; ++f) {
     const int r = row0 + warp * kFpw + f;
     if (r >= n_rows) continue;
-#pragma unroll
-    for (int j = 0; j < kMelsPerLane; ++j) {
-      const int m = lane + 32 * j;
-      if (m >= n_mels) continue;
+    for (int m = lane; m < n_mels; m += 32) {
       float sum = 0.f;
       for (int c = 0; c < n_chunks; ++c)
         sum += __ldcg(partial +
@@ -292,7 +291,7 @@ long long logmel_workspace_words(int batch, int n_frames, int n_used,
 }
 
 // wav [batch, length] fp32 (already padded), cos_b / sin_b [n_fft, n_bins],
-// mel [n_bins, n_mels] with n_mels <= 128, out [batch, n_frames, n_mels],
+// mel [n_bins, n_mels] (any n_mels >= 1), out [batch, n_frames, n_mels],
 // workspace of logmel_workspace_words(...) words. Computes frames
 // 0..n_frames-1 of every clip, frame i starting at sample i*hop; bins
 // n_used..n_bins-1 must have all-zero mel rows. Clears the tile counters
@@ -304,7 +303,7 @@ int logmel_forward(const float* wav, const float* cos_b, const float* sin_b,
                    int n_bins, int n_used, int n_mels, int magnitude,
                    float log_eps, void* stream) {
   if (batch < 1 || n_frames < 1 || hop < 1 || n_fft < 1 || n_mels < 1 ||
-      n_mels > kMaxMels || n_used < 1 || n_used > n_bins ||
+      n_used < 1 || n_used > n_bins ||
       static_cast<long long>(n_frames - 1) * hop + n_fft > length ||
       static_cast<long long>(batch) * n_frames > 0x7fffffffLL) {
     return static_cast<int>(cudaErrorInvalidValue);

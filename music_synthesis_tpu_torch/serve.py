@@ -27,7 +27,25 @@ from music_synthesis_tpu_torch._device import resolve_device
 from music_synthesis_tpu_torch.config import E2E_INFERENCE, PipelineConfig
 from music_synthesis_tpu_torch.infer.generate import generate_long
 
-__all__ = ["ServeConfig", "SynthService"]
+__all__ = ["ServeConfig", "SynthService", "latent_rows"]
+
+
+def latent_rows(seed: int, n_clips: int, n: int, latent_dim: int) -> torch.Tensor:
+    """Latent rows ``[n_clips, n, latent_dim]`` (CPU, fp32) for a seed.
+
+    The rows of ``n_clips = c`` are the first ``c`` of any larger draw with
+    the same seed, as the reference's ``_z_rows`` documents. PyTorch's CPU
+    normal sampler transforms its uniforms in blocks of 16, so a draw whose
+    size is a multiple of 16 is a prefix of every longer one: this draws
+    ``round_up(n_clips * n * latent_dim, 16)`` normals, then cuts and
+    reshapes them. Where the count is already a multiple of 16 (every
+    committed card: ``latent_dim`` 128) the rows equal
+    ``torch.randn((n_clips, n, latent_dim))`` bit for bit.
+    """
+    count = n_clips * n * latent_dim
+    g = torch.Generator().manual_seed(seed)
+    flat = torch.randn(-(-count // 16) * 16, generator=g)
+    return flat[:count].reshape(n_clips, n, latent_dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,9 +155,7 @@ class SynthService:
 
     def _z_rows(self, seed: int, n_clips: int, n: int) -> torch.Tensor:
         """Per-request latent rows ``[n_clips, n, Z]`` (CPU, fp32)."""
-        g = torch.Generator().manual_seed(seed)
-        return torch.randn((n_clips, n, self.cfg.specgan.latent_dim),
-                           generator=g)
+        return latent_rows(seed, n_clips, n, self.cfg.specgan.latent_dim)
 
     def _execute(self, n: int, rows: torch.Tensor) -> np.ndarray:
         """Run ``[R, n, Z]`` rows in largest-bucket chunks, each padded with

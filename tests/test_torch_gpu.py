@@ -48,6 +48,10 @@ def _signal(shape, seed=0):
      (2, 4096)),
     ({"n_fft": 512, "win_length": 512, "hop_length": 128, "n_mels": 64},
      (5, 3000)),
+    ({"n_mels": 160}, (2, 8192)),
+    ({"n_mels": 256}, (3, 6000)),
+    ({}, (3, 4097)),            # rows not 16-byte aligned
+    ({"n_mels": 96}, (2, 5001)),
 ])
 @pytest.mark.parametrize("precision", ["exact", "fast"])
 def test_kernel_matches_plain(cuda, kw, shape, precision):

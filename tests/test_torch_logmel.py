@@ -41,7 +41,7 @@ def _both(**kw):
     return JaxFrontendConfig(**kw), FrontendConfig(**kw)
 
 
-@pytest.mark.parametrize("n_mels", [128, 32])
+@pytest.mark.parametrize("n_mels", [128, 32, 160, 256])
 def test_matches_pallas_interpret(n_mels):
     jcfg, cfg = _both(n_mels=n_mels)
     wav = _signal((2, 8192))
@@ -52,7 +52,7 @@ def test_matches_pallas_interpret(n_mels):
     np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
 
 
-@pytest.mark.parametrize("n_mels", [128, 32])
+@pytest.mark.parametrize("n_mels", [128, 32, 160, 256])
 def test_vocoder_variant_matches_pallas_interpret(n_mels):
     jcfg, cfg = _both(n_mels=n_mels)
     wav = _signal((2, 4096), seed=1)
@@ -191,7 +191,7 @@ def test_wrapper_rejects_bad_input(bad, err):
 
 
 @pytest.mark.parametrize("kw", [{"power": 0.5}, {"win_length": 512},
-                                {"n_mels": 129}])
+                                {"n_mels": 0}])
 def test_wrapper_rejects_unsupported_configs(kw):
     x = torch.from_numpy(_signal((1, 4096), seed=9))
     with pytest.raises(ValueError):
