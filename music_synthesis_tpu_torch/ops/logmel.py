@@ -13,8 +13,23 @@ The plain version's GEMMs run in full fp32 on the card as long as
 ``torch.backends.cuda.matmul.allow_tf32`` is False (PyTorch's default, which
 the port never changes).
 
-Both precision modes (``"exact"``, ``"fast"``) run the kernel's fp32 FFMA
-path in this version; the mode is validated and kept for the callers.
+The kernel replaces the TPU kernel ``pallas_frontend.py::_kernel``. Its
+work is the rDFT GEMM (~94% of the operations), so it is bound by
+arithmetic, and the two precision modes take two paths through it:
+
+- ``"fast"`` (the default, and what copy-synthesis runs) computes the rDFT
+  on the tensor cores in 3xTF32: each operand is split into TF32 hi and lo
+  parts and ``hi*hi + hi*lo + lo*hi`` is accumulated in fp32 by
+  ``mma.sync``, which keeps fp32-level accuracy at three tensor-core passes
+  (495 TFLOP/s dense for TF32 on an H100, against 67 for fp32 FFMA). The
+  bases are packed once per device in the order of the MMA's B fragments
+  (``fragment_bases``); the kernel splits both operands in registers.
+- ``"exact"`` computes it in fp32 FFMA, in the plain version's summation
+  order, so it agrees with the plain version to ~1e-6; the 3xTF32 path
+  lands ~1e-4 away in near-silent bins, too close to the 2e-4 gate.
+
+Both end in the same mel product and log. The reference's ``fast`` is a
+bf16x3 split (error ~6.5e-3); the port's is the more exact of the two.
 """
 
 from __future__ import annotations
@@ -37,6 +52,8 @@ __all__ = [
     "LogMelKernel",
     "logmel_kernel",
     "logmel_constants",
+    "fragment_bases",
+    "mel_groups",
     "fused_log_mel",
     "fused_log_mel_for_vocoder",
     "log_mel_frames_plain",
@@ -46,6 +63,22 @@ __all__ = [
 ]
 
 PRECISIONS = ("exact", "fast")
+_TENSOR_CORES = {"exact": 0, "fast": 1}  # the kernel path of each mode
+# The "fast" path's tiles (csrc/logmel.cu, tc::kBK and tc::kBN): its packed
+# bases are zero-padded to multiples of these samples and bins.
+TC_K_STEP = 16
+TC_BINS = 64
+
+
+@functools.lru_cache(maxsize=16)
+def _host_constants(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
+                    fmax: float):
+    c, s = dft_matrices(n_fft)
+    m = np.ascontiguousarray(mel_matrix(sample_rate, n_fft, n_mels, fmin,
+                                        fmax))
+    nonzero = np.flatnonzero(np.any(m != 0.0, axis=1))
+    n_used = int(nonzero[-1]) + 1 if nonzero.size else 1
+    return c, s, m, n_used
 
 
 @functools.lru_cache(maxsize=16)
@@ -56,12 +89,53 @@ def logmel_constants(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
     built in float64 and stored as float32 exactly as the reference's
     ``dft_matrices`` / ``mel_matrix``; ``n_used`` is one past the last bin
     with a non-zero mel weight (the kernel skips the bins after it)."""
-    c, s = dft_matrices(n_fft)
-    m = mel_matrix(sample_rate, n_fft, n_mels, fmin, fmax)
-    nonzero = np.flatnonzero(np.any(m != 0.0, axis=1))
-    n_used = int(nonzero[-1]) + 1 if nonzero.size else 1
+    c, s, m, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
     return (torch.from_numpy(c).to(device), torch.from_numpy(s).to(device),
-            torch.from_numpy(np.ascontiguousarray(m)).to(device), n_used)
+            torch.from_numpy(m).to(device), n_used)
+
+
+@functools.lru_cache(maxsize=16)
+def fragment_bases(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
+                   fmax: float, device: torch.device) -> torch.Tensor:
+    """The "fast" path's bases on ``device``: C and S (bins below n_used),
+    zero-padded to ``round_up(n_fft, TC_K_STEP)`` samples and
+    ``round_up(n_used, TC_BINS)`` bins, in the order of ``mma.m16n8k8``'s B
+    fragments: ``[k // 8, bin // 8, lane 4 g + t, 4]`` holds
+    ``C[8 kb + t], C[8 kb + t + 4], S[8 kb + t], S[8 kb + t + 4]`` of bin
+    ``8 nb + g``, so a thread reads its fragments of a k8 x n8 tile, cos and
+    sin, as one 16-byte word. fp32, ~4.2 MB at n_fft 1024 (the kernel
+    splits them into TF32 parts in registers)."""
+    c, s, _, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
+    kp = -(-n_fft // TC_K_STEP) * TC_K_STEP
+    bins = -(-n_used // TC_BINS) * TC_BINS
+    parts = []
+    for basis in (c, s):
+        b = np.zeros((kp, bins), np.float32)
+        b[:n_fft, :n_used] = basis[:, :n_used]
+        parts.append(b.reshape(kp // 8, 2, 4, bins // 8, 8))
+    # k = 8 kb + 4 h + t, bin = 8 nb + g: [cs, kb, h, t, nb, g] ->
+    # [kb, nb, g, t, cs, h].
+    packed = np.stack(parts).transpose(1, 4, 5, 3, 0, 2)
+    return torch.from_numpy(np.ascontiguousarray(
+        packed.reshape(kp // 8, bins // 8, 32, 4))).to(device)
+
+
+@functools.lru_cache(maxsize=16)
+def mel_groups(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
+               fmax: float, device: torch.device) -> torch.Tensor:
+    """``[ceil(n_used / 64), 2]`` int32 on ``device``: for each chunk of 64
+    bins, the first and last 32-mel group (mels ``32 g .. 32 g + 31``) with
+    a non-zero weight in those bins; ``(2**30, -1)`` where there is none.
+    The kernel's mel stage computes only these groups (mel filters are
+    narrow: a 1024-point DFT's 64-bin chunks feed 1-2 groups of 128 mels)."""
+    _, _, m, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
+    out = []
+    for b0 in range(0, n_used, TC_BINS):
+        nz = np.flatnonzero(np.any(m[b0:min(b0 + TC_BINS, n_used)] != 0.0,
+                                   axis=0))
+        out.append((int(nz[0]) // 32, int(nz[-1]) // 32) if nz.size
+                   else (2 ** 30, -1))
+    return torch.tensor(out, dtype=torch.int32).to(device)
 
 
 def _constants(cfg: FrontendConfig, device: torch.device):
@@ -108,19 +182,28 @@ class LogMelKernel:
             words.argtypes = [i32, i32, i32, i32]
             words.restype = i64
             fn = lib.logmel_forward
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i32, i64, i32, i32,
-                           i32, i32, i32, i32, i32, ctypes.c_float, ptr]
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
+                           i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
+                           i32, i32, ptr]
             fn.restype = i32
             self._workspace_words, self._forward = words, fn
         return self._forward
 
     def __call__(self, padded: torch.Tensor, cfg: FrontendConfig,
-                 n_frames: int) -> torch.Tensor:
+                 n_frames: int, precision: str = "fast",
+                 tile_frames: int = 0) -> torch.Tensor:
         """Frames ``0..n_frames-1`` of each row of ``padded`` [B, L] (CUDA,
-        fp32, contiguous) -> log-mel ``[B, n_frames, n_mels]``."""
+        fp32, contiguous) -> log-mel ``[B, n_frames, n_mels]``, on the
+        kernel's path for ``precision``. ``tile_frames`` 64, 48 or 32 forces
+        the "fast" path's frame tile (0: the launcher's choice)."""
         if not padded.is_cuda:
             raise ValueError("the log-mel kernel needs a CUDA tensor")
+        tensor_cores = _TENSOR_CORES[precision]
         c, s, m, n_used = _constants(cfg, padded.device)
+        key = (cfg.n_fft, cfg.sample_rate, cfg.n_mels, cfg.fmin,
+               cfg.fmax_resolved, padded.device)
+        packed = fragment_bases(*key).data_ptr() if tensor_cores else None
+        groups = mel_groups(*key)
         b, length = padded.shape
         forward = self._fn()
         out = torch.empty((b, n_frames, cfg.n_mels), dtype=torch.float32,
@@ -131,10 +214,12 @@ class LogMelKernel:
         with torch.cuda.device(padded.device):
             stream = torch.cuda.current_stream(padded.device).cuda_stream
             rc = forward(
-                padded.data_ptr(), c.data_ptr(), s.data_ptr(), m.data_ptr(),
-                out.data_ptr(), workspace.data_ptr(), b, length, n_frames,
-                cfg.hop_length, cfg.n_fft, c.shape[1], n_used, cfg.n_mels,
-                int(cfg.power == 1.0), cfg.log_epsilon, stream)
+                padded.data_ptr(), c.data_ptr(), s.data_ptr(), packed,
+                m.data_ptr(), groups.data_ptr(), out.data_ptr(),
+                workspace.data_ptr(), b, length, n_frames, cfg.hop_length,
+                cfg.n_fft, c.shape[1], n_used, cfg.n_mels,
+                int(cfg.power == 1.0), cfg.log_epsilon, tensor_cores,
+                tile_frames, stream)
         if rc != 0:
             raise RuntimeError(f"logmel kernel launch failed: CUDA error {rc}")
         self.n_launches += 1
@@ -189,7 +274,7 @@ def fused_log_mel(wav: torch.Tensor, cfg: FrontendConfig,
     the kernel for a CUDA tensor, the plain version for a CPU one."""
     padded, n_frames = padded_input(wav, cfg, False, precision)
     if padded.is_cuda:
-        return logmel_kernel(padded, cfg, n_frames)
+        return logmel_kernel(padded, cfg, n_frames, precision)
     return log_mel_frames_plain(padded, cfg, n_frames)
 
 
@@ -200,7 +285,7 @@ def fused_log_mel_for_vocoder(wav: torch.Tensor, cfg: FrontendConfig,
     CPU one."""
     padded, n_frames = padded_input(wav, cfg, True, precision)
     if padded.is_cuda:
-        return logmel_kernel(padded, cfg, n_frames)
+        return logmel_kernel(padded, cfg, n_frames, precision)
     return log_mel_frames_plain(padded, cfg, n_frames)
 
 

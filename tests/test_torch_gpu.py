@@ -72,6 +72,22 @@ def test_kernel_matches_plain(cuda, kw, shape, precision):
     assert L.logmel_kernel.n_launches == before + 2
 
 
+@pytest.mark.parametrize("tile", [64, 48, 32])
+@pytest.mark.parametrize("kw, shape", [({}, (3, 4097)), ({"n_mels": 160}, (5, 8192)),
+                                       ({"n_mels": 32, "power": 1.0}, (2, 5001))])
+def test_every_frame_tile_matches_plain(cuda, tile, kw, shape):
+    """Each frame tile of the "fast" path, forced, on aligned and
+    misaligned rows and ragged tiles."""
+    cfg = FrontendConfig(**kw)
+    wav = _signal(shape, seed=1).to(cuda)
+    for for_vocoder in (True, False):
+        padded, n_frames = L.padded_input(wav, cfg, for_vocoder)
+        got = L.logmel_kernel(padded, cfg, n_frames, "fast", tile_frames=tile)
+        torch.cuda.synchronize()
+        want = L.log_mel_frames_plain(padded, cfg, n_frames)
+        torch.testing.assert_close(got, want, rtol=TOL, atol=TOL)
+
+
 def test_kernel_rejects_bad_input_on_the_card(cuda):
     wav = _signal((2, 4096)).to(cuda)
     with pytest.raises(TypeError):

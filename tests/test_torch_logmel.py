@@ -216,3 +216,106 @@ def test_too_short_signals_are_rejected(variant, length, kw):
     for fn in fns:
         with pytest.raises(ValueError, match="too short"):
             fn(x, cfg)
+
+
+def _tf32_truncate(x):
+    """The top 10 mantissa bits, as the kernel's split and the MMA read."""
+    return (np.ascontiguousarray(x, np.float32).view(np.uint32)
+            & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _unpack_fragment_bases(packed):
+    """C and S read back through the m16n8k8 B-fragment mapping: lane
+    4 g + t holds (k = t, n = g) and (k = t + 4, n = g) of cos, then sin."""
+    kb_n, nb_n = packed.shape[:2]
+    out = np.zeros((2, kb_n * 8, nb_n * 8), np.float32)  # [cs, k, n]
+    for lane in range(32):
+        g, t = divmod(lane, 4)
+        for cs in range(2):
+            for h in range(2):
+                out[cs, t + 4 * h::8, g::8] = packed[:, :, lane, 2 * cs + h]
+    return out
+
+
+@pytest.mark.parametrize("n_fft, n_mels", [(1024, 128), (256, 32), (1000, 160)])
+def test_bases_are_packed_in_fragment_order(n_fft, n_mels):
+    c, s, _, n_used = L.logmel_constants(n_fft, 22050, n_mels, 0.0, 11025.0,
+                                         torch.device("cpu"))
+    packed = L.fragment_bases(n_fft, 22050, n_mels, 0.0, 11025.0,
+                              torch.device("cpu")).numpy()
+    kp = -(-n_fft // L.TC_K_STEP) * L.TC_K_STEP
+    bins = -(-n_used // L.TC_BINS) * L.TC_BINS
+    assert packed.shape == (kp // 8, bins // 8, 32, 4)
+    parts = _unpack_fragment_bases(packed)
+    for cs, basis in enumerate((c.numpy(), s.numpy())):
+        np.testing.assert_array_equal(parts[cs, :n_fft, :n_used],
+                                      basis[:, :n_used])
+        assert not parts[cs, n_fft:].any() and not parts[cs, :, n_used:].any()
+
+
+@pytest.mark.parametrize("variant", ["log_mel", "for_vocoder"])
+def test_3xtf32_arithmetic_matches_pallas_interpret(variant):
+    """The "fast" kernel path's arithmetic, emulated on the CPU from the
+    packed bases (both operands split by truncation into TF32 hi + lo, as
+    the kernel does in registers; lo*hi + hi*lo + hi*hi),
+    against the Pallas kernel in interpret mode, within the 2e-4 of the
+    fp32 comparisons above on this signal (the card holds the kernel itself
+    to its plain version in chip_smoke.py)."""
+    jcfg, cfg = _both(n_mels=80)
+    wav = _signal((2, 4096), seed=12)
+    if variant == "log_mel":
+        want = np.asarray(pallas_log_mel(jnp.asarray(wav), jcfg, tile_frames=8,
+                                         interpret=True, precision="exact"))
+    else:
+        want = np.asarray(pallas_log_mel_for_vocoder(
+            jnp.asarray(wav), jcfg, tile_frames=8, interpret=True,
+            precision="exact"))
+    padded, n_frames = L.padded_input(torch.from_numpy(wav), cfg,
+                                      variant == "for_vocoder")
+    frames = padded.unfold(-1, cfg.n_fft, cfg.hop_length)[:, :n_frames]
+    x = frames.reshape(-1, cfg.n_fft).numpy().astype(np.float32)
+    _, _, m, n_used = L.logmel_constants(cfg.n_fft, cfg.sample_rate,
+                                         cfg.n_mels, cfg.fmin,
+                                         cfg.fmax_resolved,
+                                         torch.device("cpu"))
+    bases = _unpack_fragment_bases(L.fragment_bases(
+        cfg.n_fft, cfg.sample_rate, cfg.n_mels, cfg.fmin, cfg.fmax_resolved,
+        torch.device("cpu")).numpy())[:, :cfg.n_fft, :n_used]
+
+    def split(v):  # hi + lo as the MMA reads them
+        hi = _tf32_truncate(v)
+        return hi, _tf32_truncate(v - hi)
+
+    x_hi, x_lo = split(x)
+    re, im = (x_lo @ b_hi + x_hi @ b_lo + x_hi @ b_hi
+              for b_hi, b_lo in map(split, bases))
+    power = re * re + im * im
+    got = np.log(cfg.log_epsilon + power @ m.numpy()[:n_used])
+    got = got.reshape(want.shape)
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("n_fft, n_mels, fmin, fmax", [
+    (1024, 128, 0.0, 11025.0), (1024, 160, 0.0, 11025.0),
+    (512, 64, 30.0, 8000.0), (256, 32, 0.0, 11025.0), (1024, 7, 0.0, 11025.0)])
+def test_mel_groups_cover_every_weight(n_fft, n_mels, fmin, fmax):
+    """Every non-zero mel weight lies in its 64-bin chunk's group range, so
+    the kernel's mel stage, which computes only those groups, adds exactly
+    the terms the dense product adds (the others are zeros)."""
+    _, _, m, n_used = L.logmel_constants(n_fft, 22050, n_mels, fmin, fmax,
+                                         torch.device("cpu"))
+    groups = L.mel_groups(n_fft, 22050, n_mels, fmin, fmax,
+                          torch.device("cpu")).numpy()
+    assert groups.shape == (-(-n_used // L.TC_BINS), 2)
+    bins, mels = np.nonzero(m.numpy()[:n_used])
+    lo, hi = groups[bins // L.TC_BINS].T
+    assert ((lo <= mels // 32) & (mels // 32 <= hi)).all()
+    # The group-skipping sum equals the dense product on a power spectrum.
+    power = np.random.default_rng(13).random((5, n_used)).astype(np.float32)
+    dense = power @ m.numpy()[:n_used]
+    sparse = np.zeros_like(dense)
+    for c, (g0, g1) in enumerate(groups):
+        cols = slice(32 * g0, 32 * (g1 + 1))
+        rows = slice(c * L.TC_BINS, min((c + 1) * L.TC_BINS, n_used))
+        sparse[:, cols] += power[:, rows] @ m.numpy()[rows, cols]
+    np.testing.assert_allclose(sparse, dense, rtol=1e-5, atol=1e-7)
