@@ -18,7 +18,8 @@ at the flagship's full width with the committed zoo weights, in phases:
    max abs error <= 2e-4 ("exact"), <= 2e-2 ("fast"); the times of both
    paths and of the plain version (median of 21 CUDA-event samples of 10
    back-to-back calls, after warm-up) beside two bounds: fp32 FFMA, and
-   three TF32 tensor-core passes (the one in the ``kernels`` line);
+   three TF32 tensor-core passes (the one in the ``kernels`` line); and
+   the "fast" path's three frame tiles, each forced, at the three shapes;
 3. copy-synthesis (main path): seeded harmonic test audio [16, 8192] and
    [4, 88064] through ``infer.copy_synthesis`` with ``zoo/vocoder_istft``;
    the kernel's launch count must rise;

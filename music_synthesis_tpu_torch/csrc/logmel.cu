@@ -6,7 +6,7 @@
 //   x      = wav[b, i*hop : i*hop + n_fft]            (read in place)
 //   re, im = x @ C, x @ S      (Hann-windowed real-DFT bases, [n_fft, n_bins])
 //   p      = re^2 + im^2       (or sqrt of it for magnitude mode)
-//   out    = log(eps + p @ M)  (Slaney mel matrix, [n_bins, n_mels], any n_mels)
+//   out    = log(eps + p @ M)  (Slaney mel matrix, [n_bins, n_mels])
 // Frames are never materialised in device memory, and the power spectrum
 // never leaves the block: it goes from registers through shared memory into
 // the mel product.
@@ -38,18 +38,18 @@
 //   frame start is 16-byte aligned, 4-byte copies otherwise. Two stages are
 //   in flight while the warps multiply the third. The blocks of a frame
 //   tile's bin chunks are adjacent in the grid, so they run together.
-// - Measured on an H100, the loop is bound by moving operands (the ring and
-//   the fragment loads from shared memory), not by the tensor cores: one
-//   MMA pass instead of three saves ~12%. So the bases travel in fp32 (not
-//   as stored hi and lo, which doubled that stream), and the launcher
-//   picks the frame tile from a cost model of the three tiles' measured
-//   times: the larger the tile, the fewer bases per frame, but the fewer
-//   blocks to spread over the SMs.
+// - On an H100 the loop is bound by moving operands (the ring and the
+//   fragment loads from shared memory), not by the tensor cores: a build
+//   with one MMA pass instead of three was barely faster. So the bases
+//   travel in fp32 (bases stored as hi and lo doubled that stream and were
+//   slower), and the launcher picks the frame tile from a cost model of
+//   the three tiles' times: the larger the tile, the fewer bases per
+//   frame, but the fewer blocks to spread over the SMs.
 //
 // "exact": fp32 FFMA (ffma::logmel_ffma_kernel). It accumulates in the
 // order of the plain version's cuBLAS fp32 GEMM and agrees with it to ~1e-6
-// in the log domain; the 3xTF32 path, rounded elsewhere, lands ~1e-4 from
-// it in near-silent mel bins, too close to the "exact" gate of 2e-4. A
+// in the log domain; the 3xTF32 path, rounded elsewhere, lands up to ~7e-4
+// from it in near-silent mel bins, past the "exact" gate of 2e-4. A
 // thread keeps an 8-frame (4 on small grids) x 4-bin register tile of re
 // and im over 128-bin chunks, the next stage prefetched into registers.
 //
@@ -122,7 +122,8 @@ __device__ __forceinline__ void mel_epilogue(
       const int bb = i >> 5;
       const int mm = 32 * gm + (i & 31);
       smel[i] = bb < nb && mm < n_mels
-                    ? __ldg(mel + static_cast<long long>(bin0 + bb) * n_mels + mm)
+                    ? __ldg(mel + static_cast<long long>(bin0 + bb) * n_mels +
+                            mm)
                     : 0.f;
     }
     __syncthreads();
@@ -148,7 +149,9 @@ __device__ __forceinline__ void mel_epilogue(
 #pragma unroll
       for (int f = 0; f < kFpw; ++f) {
         const int r = row0 + warp * kFpw + f;
-        if (r < n_rows) partial[chunk * plane + static_cast<long long>(r) * n_mels + m] = acc[f];
+        if (r < n_rows)
+          partial[chunk * plane + static_cast<long long>(r) * n_mels + m] =
+              acc[f];
       }
     }
   }
@@ -258,14 +261,15 @@ __device__ __forceinline__ void prefetch(float* x_pre, float (*b_pre)[kKC],
 
 template <int kFpw>
 __global__ void __launch_bounds__(kThreads, 1)
-logmel_ffma_kernel(const float* __restrict__ wav, const float* __restrict__ cos_b,
-              const float* __restrict__ sin_b, const float* __restrict__ mel,
-              const int* __restrict__ groups,
-              float* __restrict__ out, float* __restrict__ partial,
-              int* __restrict__ done, int n_rows, int n_frames,
-              long long row_stride, int hop, int n_fft, int n_bins,
-              int n_used, int n_mels, int magnitude, float log_eps,
-              int n_chunks) {
+logmel_ffma_kernel(const float* __restrict__ wav,
+                   const float* __restrict__ cos_b,
+                   const float* __restrict__ sin_b,
+                   const float* __restrict__ mel,
+                   const int* __restrict__ groups, float* __restrict__ out,
+                   float* __restrict__ partial, int* __restrict__ done,
+                   int n_rows, int n_frames, long long row_stride, int hop,
+                   int n_fft, int n_bins, int n_used, int n_mels,
+                   int magnitude, float log_eps, int n_chunks) {
   using T = Tile<kFpw>;
   __shared__ __align__(16) float xs[kKC][T::kXsStride];  // samples x frames
   __shared__ __align__(16) float bs[kKC][2 * kChunk];    // cos | sin
@@ -408,7 +412,8 @@ struct Cfg {
   static constexpr int kSmemBytes = 4 * kRingFloats;
   static constexpr int kFpw = kBM / kWarps;               // mel-stage frames
   static constexpr int kAChunks = kBM * kBK / 4;          // 16-byte A chunks
-  static constexpr int kAV = (kAChunks + kThreads - 1) / kThreads;  // per thread
+  static constexpr int kAV =                               // per thread
+      (kAChunks + kThreads - 1) / kThreads;
   static constexpr int kA4 = kBM * kBK / kThreads;        // 4-byte, per thread
   static constexpr int kB16 = (kBStage / 4 + kThreads - 1) / kThreads;  // B
   static_assert(kWarpsN * kNTW == kNT, "the warps cover the block's bins");
@@ -512,7 +517,8 @@ logmel_tc_kernel(const float* __restrict__ wav,
   auto frame = [&](int r) -> const float* {
     if (r >= n_rows) return nullptr;
     const int b = r / n_frames;
-    return wav + b * row_stride + static_cast<long long>(r - b * n_frames) * hop;
+    return wav + b * row_stride +
+           static_cast<long long>(r - b * n_frames) * hop;
   };
   // The 16-byte path's copies of each stage: samples 4 q .. 4 q + 3 of
   // frame f, for chunk c = tid + i kThreads = 4 f + q < kAChunks.
@@ -714,12 +720,13 @@ long long logmel_workspace_words(int batch, int n_frames, int n_used,
 // n_mels], workspace of logmel_workspace_words(...) words. tensor_cores = 0
 // ("exact") reads the fp32 bases cos_b / sin_b [n_fft, n_bins];
 // tensor_cores = 1 ("fast") reads the same bases packed in fragment order,
-// `packed` (layout at tc::logmel_tc_kernel). Computes frames 0..n_frames-1 of every clip,
-// frame i starting at sample i*hop; bins n_used..n_bins-1 must have
-// all-zero mel rows. Clears the tile counters and launches the kernel on
-// `stream`, without synchronising; returns the first CUDA error (0 on
-// success). tile_frames (tensor cores only): 0 lets the launcher choose
-// the frame tile, 64, 48 or 32 forces it (to time the tiles).
+// `packed` (layout at tc::logmel_tc_kernel). Computes frames
+// 0..n_frames-1 of every clip, frame i starting at sample i*hop; bins
+// n_used..n_bins-1 must have all-zero mel rows. Clears the tile counters
+// and launches the kernel on `stream`, without synchronising; returns the
+// first CUDA error (0 on success). tile_frames (tensor cores only): 0 lets
+// the launcher choose the frame tile, 64, 48 or 32 forces it (to time the
+// tiles).
 int logmel_forward(const float* wav, const float* cos_b, const float* sin_b,
                    const float* packed, const float* mel, const int* groups,
                    float* out, void* workspace, int batch, long long length,
@@ -787,7 +794,8 @@ int logmel_forward(const float* wav, const float* cos_b, const float* sin_b,
   const int wide_tiles =
       (n_rows + ffma::Tile<8>::kFrames - 1) / ffma::Tile<8>::kFrames;
   if (static_cast<long long>(wide_tiles) * n_chunks >= 2LL * n_sm) {
-    ffma::logmel_ffma_kernel<8><<<wide_tiles * n_chunks, ffma::kThreads, 0, s>>>(
+    ffma::logmel_ffma_kernel<8>
+        <<<wide_tiles * n_chunks, ffma::kThreads, 0, s>>>(
         wav, cos_b, sin_b, mel, groups, out, partial, done, n_rows, n_frames,
         length, hop, n_fft, n_bins, n_used, n_mels, magnitude, log_eps,
         n_chunks);

@@ -25,11 +25,12 @@ arithmetic, and the two precision modes take two paths through it:
   bases are packed once per device in the order of the MMA's B fragments
   (``fragment_bases``); the kernel splits both operands in registers.
 - ``"exact"`` computes it in fp32 FFMA, in the plain version's summation
-  order, so it agrees with the plain version to ~1e-6; the 3xTF32 path
-  lands ~1e-4 away in near-silent bins, too close to the 2e-4 gate.
+  order, so it agrees with the plain version to ~1e-6; the 3xTF32 path,
+  rounded elsewhere, lands up to ~7e-4 away in near-silent mel bins (on an
+  H100, PERF.md), past the 2e-4 gate that ``"exact"`` is held to.
 
 Both end in the same mel product and log. The reference's ``fast`` is a
-bf16x3 split (error ~6.5e-3); the port's is the more exact of the two.
+bf16x3 split, which keeps fewer mantissa bits than 3xTF32.
 """
 
 from __future__ import annotations
