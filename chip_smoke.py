@@ -31,9 +31,21 @@ at the flagship's full width with the committed zoo weights, in phases:
    serving in fp32 under cuDNN's default TF32 convolutions) against CPU
    fp32, within the CPU's own bf16-vs-fp32 gap at the same input
    (``CPU_GAPS``) times a stated factor (``GAP_FACTOR``);
-6. the ``kernels`` JSON line.
+6. training (main path): stage-2 GAN training at the flagship's full width
+   (``train.flagship.flagship_config``: ``zoo/vocoder_istft``'s vocoder,
+   front-end and MelScaler, the MSD+MRD and training knobs of the flagship
+   run) through ``train.stage2.train_step``, batch [16, 8192] in bf16, G
+   from the zoo, D seeded: 2 steps inside the warmup gate (D and its Adam state must not
+   move, G must), then 1 + 3 steps past it (D must move); finite metrics
+   under the JAX step's keys; one log-mel kernel launch per step; the
+   median step time (CUDA events) and peak memory; then one step at
+   [2, 8192] in fp32 with TF32 off on the card (the "exact" kernel), from
+   a D whose logits are away from 0, against the same step on the CPU
+   (``TRAIN_TOL``), and the same step with TF32 on, which must fail it;
+7. the ``kernels`` JSON line.
 
-The launch counts are set to 0 just before phases 3-4 and read just after.
+The launch counts are set to 0 just before phases 3-4 and read just after,
+and again around phase 6's main-path steps.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA card; exits non-zero without one. Starts no server, no thread
@@ -43,6 +55,7 @@ and no process other than nvcc and nvidia-smi.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import faulthandler
 import json
 import subprocess
@@ -74,6 +87,24 @@ CPU_GAPS = {"copy_wav": 0.02714693546295166,
 # mantissa bits than bf16 and rounds only the convolutions' inputs, so its
 # gap should be well under the CPU's bf16 gap: held to that gap, once.
 GAP_FACTOR = {"copy": 2.0, "serve": 1.0}
+
+# Training step, card (fp32, cuDNN and matmul TF32 off, "exact" log-mel)
+# against the CPU (fp32), from a state whose D gives logits well away from 0
+# (``he_gain_d``) and whose D update is continuous in the gradient
+# (``warm_second_moment``): |card - cpu| <= rtol * |cpu|, per metric kind.
+# On an H100 the largest gaps were 1.27e-5 on the losses (d_r1) and
+# 9.48e-5 on the gradient norms (d_grad_norm), and the same step with TF32
+# on was 3.2e-4 off in d_loss, 3.8e-4 in d_r1 and 3.2e-4 in g_adv
+# (PERF.md): the tolerances are about four and three times the fp32
+# gaps, and the TF32 step must fail them (``check_training_on_cpu``).
+TRAIN_TOL = {"loss": 5e-5, "grad_norm": 3e-4}
+# The flagship D's output gains for that check: MSD logits of 0.1-0.3, MRD
+# logits near 1e-3 (their R1, through log|S|, would otherwise reach 1e7);
+# R1 is then about 75 and the hinge terms about 12 of d_loss.
+TRAIN_D_OUT_GAIN = {"msd": 2.0 ** 0.5, "mrd": 1e-3}
+TRAIN_LOSSES = ("d_loss", "g_loss", "g_rms_ratio", "g_adv", "g_fm", "g_stft",
+                "d_r1")
+TRAIN_GRAD_NORMS = ("d_grad_norm", "g_grad_norm")
 
 
 def log(*parts) -> None:
@@ -152,6 +183,13 @@ def test_audio(rng: np.random.Generator, batch: int, length: int,
     return out.astype(np.float32)
 
 
+def card_name_and_power() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+
+
 def phase_build():
     from music_synthesis_tpu_torch import _build
 
@@ -159,10 +197,7 @@ def phase_build():
     log(f"[build] {result.name}: {result.seconds:.2f} s -> {result.library}")
     for line in result.ptxas:
         log(f"[build]   {line}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    log(smi)
+    log(card_name_and_power())
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
@@ -375,6 +410,207 @@ def check_serving_on_cpu(svc) -> dict:
     return {"fp32": err, "default_tf32": err_def, "default_tolerance": tol}
 
 
+def train_metric_keys(cfg) -> set:
+    """The metric keys the JAX stage-2 step returns for ``cfg``."""
+    t = cfg.train
+    keys = {"d_loss", "g_loss", "g_rms_ratio", "g_adv", "g_fm", "g_stft",
+            "d_grad_norm", "g_grad_norm", "d_update_norm", "g_update_norm"}
+    keys |= {"g_energy"} if t.lambda_energy > 0 else set()
+    keys |= {"g_phase"} if t.lambda_phase > 0 else set()
+    keys |= {"d_r1"} if t.r1_gamma > 0 else set()
+    return keys
+
+
+def _same(a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _copy(d: dict) -> dict:
+    return {k: v.clone() for k, v in d.items()}
+
+
+def phase_training(rng: np.random.Generator, device: str = "cuda",
+                   cfg=None) -> dict:
+    """Stage-2 training steps on both sides of the warmup gate (main path);
+    the caller zeroes the launch counts before and reads them after."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.flagship import (flagship_config,
+                                                          zoo_train_state)
+
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg = cfg or flagship_config(entry)
+    t = cfg.train
+    check(t.use_pallas_frontend and t.g_warmup_steps > 0,
+          "the training phase runs the flagship's kernel and warmup gate")
+    state = zoo_train_state(cfg, entry, device, seed=t.seed)
+    wav = torch.from_numpy(test_audio(rng, t.batch_size, t.segment_length,
+                                      cfg.frontend.sample_rate)).to(device)
+    keys = train_metric_keys(cfg)
+    cuda = device == "cuda"
+
+    def step(state):
+        before = logmel_kernel.n_launches
+        if cuda:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+        t0 = time.perf_counter()
+        state, m = stage2.train_step(cfg, state, wav)
+        if cuda:
+            end.record()
+            end.synchronize()
+        wall = time.perf_counter() - t0
+        ms = start.elapsed_time(end) if cuda else 1e3 * wall
+        check(set(m) == keys, f"metric keys {sorted(m)} != {sorted(keys)}")
+        check(all(np.isfinite(v) for v in m.values()), f"metrics {m}")
+        if cuda:
+            check(logmel_kernel.n_launches == before + 1,
+                  "a training step did not launch the log-mel kernel once")
+        return state, m, ms, wall
+
+    d0, g0 = _copy(state.d_params), _copy(state.g_params)
+    d_mu0, d_nu0 = _copy(state.d_opt.mu), _copy(state.d_opt.nu)
+    gated = []
+    for _ in range(2):
+        state, m, ms, wall = step(state)
+        gated.append({"metrics": m, "ms": ms, "wall_s": wall})
+        log(f"[train] step {state.step - 1} (warmup gate closed): {ms:.2f} ms, "
+            + ", ".join(f"{k} {v:.5g}" for k, v in sorted(m.items())))
+    check(_same(state.d_params, d0) and _same(state.d_opt.mu, d_mu0)
+          and _same(state.d_opt.nu, d_nu0) and state.d_opt.count == 0,
+          "D or its Adam state moved inside the warmup gate")
+    check(not _same(state.g_params, g0), "G did not move inside the gate")
+    check(gated[-1]["metrics"]["d_update_norm"] == 0.0, "D update inside gate")
+
+    state = dataclasses.replace(state, step=t.g_warmup_steps)
+    d1 = _copy(state.d_params)
+    state, m, ms, wall = step(state)  # warm-up of the adversarial step
+    log(f"[train] step {state.step - 1} (gate open, warm-up): {ms:.2f} ms")
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    adversarial = []
+    for _ in range(3):
+        state, m, ms, wall = step(state)
+        adversarial.append({"metrics": m, "ms": ms, "wall_s": wall})
+        log(f"[train] step {state.step - 1} (gate open): {ms:.2f} ms, "
+            + ", ".join(f"{k} {v:.5g}" for k, v in sorted(m.items())))
+    check(not _same(state.d_params, d1), "D did not move past the gate")
+    check(state.d_opt.count == 4, f"D's Adam count {state.d_opt.count} != 4")
+    peak = torch.cuda.max_memory_allocated() if cuda else None
+    median_ms = float(np.median([a["ms"] for a in adversarial]))
+    log(f"[train] flagship [{t.batch_size}, {t.segment_length}] "
+        f"{cfg.vocoder.compute_dtype}: median adversarial step {median_ms:.2f} "
+        f"ms (CUDA events, 3 steps after 1 warm-up), wall "
+        f"{np.median([a['wall_s'] for a in adversarial]) * 1e3:.2f} ms, "
+        f"peak memory {peak} B")
+    return {"median_step_ms": median_ms, "peak_memory_bytes": peak,
+            "gated": gated, "adversarial": adversarial,
+            "steps": state.step - t.g_warmup_steps + 2}
+
+
+def he_gain_d(d_params: dict, seed: int, out_gain: dict) -> dict:
+    """D's weight-norm gains set to He's sqrt(2) (+-30%), its biases to
+    small values, and the output gains of the MSD and MRD heads to
+    ``out_gain["msd"]`` and ``out_gain["mrd"]`` (+-30%).
+
+    At D's init each gain equals its filter's norm, so the logits sit near
+    0, where the hinge losses read about 2 per head and g_adv about 0
+    whatever D computes. With He gains the features are of order 1. R1 is
+    the squared input gradient of the logits; the MRD's runs through
+    ``log|S|``, whose derivative is 1/|S| in quiet bins, so at MRD logits
+    of order 1 it reaches 1e7 and buries the hinge terms of d_loss: the
+    output gains set the logits' scale and with it R1's."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in d_params.items():
+        r = torch.randn(v.shape, generator=gen).to(v.device)
+        if k.endswith(".g"):
+            head = k.split(".")[0]
+            gain = out_gain[head] if k.endswith(".conv_out.g") else 2.0 ** 0.5
+            out[k] = gain * (1.0 + 0.3 * r)
+        elif k.endswith(".b"):
+            out[k] = 0.05 * r
+        else:
+            out[k] = v
+    return out
+
+
+def warm_second_moment(opt):
+    """An Adam state whose second moment is 1 everywhere. The G step runs
+    against the updated D, and a fresh Adam's first update is about
+    ``lr * sign(g)``, which rounding flips where g is near 0; from this
+    state it is ``lr * g / sqrt(9 + g^2)`` (b2 = 0.9), continuous in g."""
+    return dataclasses.replace(
+        opt, nu={k: torch.ones_like(v) for k, v in opt.nu.items()})
+
+
+def check_training_on_cpu(seed: int = DEFAULT_PATH_SEED) -> dict:
+    """One flagship step at [2, 8192] in fp32 from one state (zoo G, D with
+    ``he_gain_d`` and ``warm_second_moment``, past the gate, fixed audio
+    and instance noise): on the card with TF32 off and the "exact" log-mel
+    kernel, against the CPU (``TRAIN_TOL``). As a control, the same step
+    on the card with TF32 on (cuDNN and matmul) must fail the tolerance."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.flagship import (flagship_config,
+                                                          zoo_train_state)
+
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg = flagship_config(entry)
+    cfg = dataclasses.replace(
+        cfg, vocoder=dataclasses.replace(cfg.vocoder, compute_dtype="float32"),
+        msd=dataclasses.replace(cfg.msd, compute_dtype="float32"),
+        mrd=dataclasses.replace(cfg.mrd, compute_dtype="float32"),
+        train=dataclasses.replace(cfg.train, batch_size=2))
+    rng = np.random.default_rng(seed)
+    wav = test_audio(rng, 2, 8192, cfg.frontend.sample_rate)
+    noise = [rng.standard_normal((2, 8192)).astype(np.float32)
+             for _ in range(3)]
+    out = {}
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for run, device, tf32 in (("cpu", "cpu", False),
+                                  ("card", "cuda", False),
+                                  ("card_tf32", "cuda", True)):
+            state = zoo_train_state(cfg, entry, device, seed=cfg.train.seed)
+            state = dataclasses.replace(
+                state, step=cfg.train.g_warmup_steps,
+                d_params=he_gain_d(state.d_params, seed, TRAIN_D_OUT_GAIN),
+                d_opt=warm_second_moment(state.d_opt))
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                _, out[run] = stage2.train_step(
+                    cfg, state, wav, noise=noise,
+                    precision="exact" if device == "cuda" else "fast")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    cpu = out["cpu"]
+    kinds = {k: kind for names, kind in ((TRAIN_LOSSES, "loss"),
+                                         (TRAIN_GRAD_NORMS, "grad_norm"))
+             for k in names}
+    rel = {run: {k: abs(out[run][k] - cpu[k]) / abs(cpu[k]) for k in kinds}
+           for run in ("card", "card_tf32")}
+    for run, label in (("card", "TF32 off"), ("card_tf32", "TF32 on")):
+        log(f"[train] card ({label}) vs CPU, fp32 [2, 8192]: |diff| / |cpu| "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel[run].items()))
+    log(f"[train] CPU metrics: {cpu}")
+    check(abs(cpu["g_adv"]) > 1e-2,
+          f"D's logits sit near 0 (g_adv {cpu['g_adv']}): the check would "
+          f"not read D's forward")
+    for k, kind in kinds.items():
+        check(rel["card"][k] <= TRAIN_TOL[kind],
+              f"training step card vs CPU: {k} {out['card'][k]} vs {cpu[k]}, "
+              f"|diff| / |cpu| {rel['card'][k]:.3g} > {TRAIN_TOL[kind]}")
+    check(any(rel["card_tf32"][k] > TRAIN_TOL[kind] for k, kind in kinds.items()),
+          "the same step with TF32 on passes TRAIN_TOL: it does not tell "
+          "fp32 from TF32")
+    return {"rel_diff": rel["card"], "rel_diff_tf32": rel["card_tf32"],
+            "tolerance": TRAIN_TOL, "card": out["card"], "cpu": cpu,
+            "card_tf32": out["card_tf32"]}
+
+
 def cpu_gaps() -> dict:
     """The CPU's own max abs gaps between bf16 and fp32 at the default-path
     checks' inputs and weights: copy-synthesis (waveform and distance) and
@@ -436,7 +672,19 @@ def main() -> int:
     copy_err = check_copy_synthesis_on_cpu()
     serve_err = check_serving_on_cpu(svc)
 
-    log("== phase 6: kernels")
+    log("== phase 6: training (main path), and against the CPU")
+    logmel_kernel.n_launches = 0
+    training = phase_training(rng)
+    launches["train"] = logmel_kernel.n_launches
+    log(f"[main] kernel launches in training: {launches['train']}")
+    check(launches["train"] == training["steps"],
+          "training did not launch the log-mel kernel once per step")
+    train_err = check_training_on_cpu()
+    log(f"[train] median adversarial step {training['median_step_ms']:.2f} ms, "
+        f"peak memory {training['peak_memory_bytes'] / 2**30:.3f} GiB, on "
+        f"{card_name_and_power()}")
+
+    log("== phase 7: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
                     and r["n_mels"] == 128)
@@ -445,7 +693,7 @@ def main() -> int:
         "route": "cuda",
         "source": "music_synthesis_tpu_torch/csrc/logmel.cu",
         "replaces": "music_synthesis_tpu/ops/pallas_frontend.py:207",
-        "launches": launches["logmel"],
+        "launches": launches["logmel"] + launches["train"],
         "max_abs_err": max(kv["worst"].values()),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -461,10 +709,14 @@ def main() -> int:
         "max_abs_err_fast": kv["worst"]["fast"],
         "build_s": build.seconds,
         "shape": [16, 8192],
+        "launches_by_path": {"copy_synthesis_and_serving": launches["logmel"],
+                             "train_step": launches["train"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
                "serve_card_vs_cpu_err": serve_err,
+               "train_step": training,
+               "train_card_vs_cpu_err": train_err,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

@@ -2,8 +2,9 @@
 
 The JAX package is the reference; this package mirrors its module names so
 each module's counterpart is easy to find, and imports nothing from it.
-Entry points (``serve.SynthService``, ``infer.copy_synthesis``) run on
-``cuda`` unless the caller passes ``device="cpu"``.
+Entry points (``serve.SynthService``, ``infer.copy_synthesis``,
+``train.stage2.make_train_state`` / ``train_step``) run on ``cuda`` unless
+the caller passes ``device="cpu"``.
 
 The one TPU kernel of the reference, the fused log-mel front-end, is a
 hand-written CUDA kernel here (``csrc/logmel.cu``, wrapped by

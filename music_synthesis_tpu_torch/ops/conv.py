@@ -1,26 +1,33 @@
-"""Weight-normalized 1-D convolutions (counterpart of ``ops/conv.py``).
+"""Weight-normalized convolutions (counterpart of ``ops/conv.py``).
 
 Parameters keep the JAX package's names and layout, so a Flax parameter
 tree converts to a ``state_dict`` by flattening alone (``convert.py``):
 
-- ``v``: the direction, ``[K, Cin/groups, Cout]`` (JAX's HIO);
+- ``v``: the direction, ``[*K, Cin/groups, Cout]`` (JAX's HIO / HWIO);
 - ``g``: the per-output-channel gain ``[Cout]`` (only with weight norm);
 - ``b``: the bias ``[Cout]``.
 
 The kernel is ``g * v / sqrt(sum(v^2) + 1e-12)`` with the norm over every
 axis except Cout, and is permuted (and, for the transposed convolution,
 flipped) into PyTorch's layout inside ``forward``. Activations are PyTorch's
-``[B, C, L]``. With ``compute_dtype="bfloat16"`` the parameters stay fp32 and
-the input, kernel and bias are cast, so activations flow onward in bf16.
+``[B, C, L]`` (1-D) and ``[B, C, T, F]`` (2-D, JAX's ``[B, T, F, C]``).
+With ``compute_dtype="bfloat16"`` the parameters stay fp32 and the input,
+kernel and bias are cast, so activations flow onward in bf16. The JAX
+package's TPU relayouts of the same math (``dense_groups``,
+``FFoldedWNConv2d``) are not ported: the port computes the logical
+convolution they equal.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["WNConv", "WNConvTranspose1d", "conv_transpose_padding"]
+__all__ = ["WNConv", "WNConvTranspose1d", "avg_pool1d",
+           "conv_transpose_padding"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -71,46 +78,65 @@ class _WNBase(nn.Module):
 
 
 class WNConv(_WNBase):
-    """1-D convolution ``[B, Cin, L] -> [B, Cout, L']`` with explicit padding.
+    """1-D ``[B, Cin, L] -> [B, Cout, L']`` or 2-D ``[B, Cin, T, F] ->
+    [B, Cout, T', F']`` convolution with explicit padding.
 
-    padding: 'same' (torch-style symmetric zeros, total ``d*(k-1)`` with the
-    extra sample on the right), 'reflect' (the same amounts, reflected) or
-    'valid'.
+    ``kernel_size``, ``stride`` and ``dilation`` are an int (1-D) or one
+    int per spatial axis. padding: 'same' (torch-style symmetric zeros,
+    total ``d*(k-1)`` per axis with the extra sample at the end), 'reflect'
+    (the same amounts, reflected) or 'valid'.
     """
 
-    def __init__(self, in_channels: int, features: int, kernel_size: int, *,
-                 stride: int = 1, dilation: int = 1, groups: int = 1,
+    def __init__(self, in_channels: int, features: int,
+                 kernel_size: int | tuple[int, ...], *,
+                 stride: int | tuple[int, ...] = 1,
+                 dilation: int | tuple[int, ...] = 1, groups: int = 1,
                  padding: str = "same", use_weight_norm: bool = True,
                  use_bias: bool = True, init_scale: float = 0.02,
                  init_scheme: str = "dcgan", init_gain: float = 1.0,
                  compute_dtype: str = "float32",
                  generator: torch.Generator | None = None):
+        kernel = ((kernel_size,) if isinstance(kernel_size, int)
+                  else tuple(kernel_size))
+        ndim = len(kernel)
+        if ndim not in (1, 2):
+            raise ValueError(f"{ndim}-D convolutions are not supported")
+
+        def per_axis(v):
+            return (v,) * ndim if isinstance(v, int) else tuple(v)
+
         if in_channels % groups:
             raise ValueError(f"in_channels {in_channels} not divisible by "
                              f"groups {groups}")
         if padding not in ("same", "reflect", "valid"):
             raise ValueError(f"unsupported padding {padding!r}")
         super().__init__(
-            (kernel_size, in_channels // groups, features),
-            (in_channels // groups) * kernel_size,
+            (*kernel, in_channels // groups, features),
+            (in_channels // groups) * math.prod(kernel),
             use_weight_norm=use_weight_norm, use_bias=use_bias,
             init_scale=init_scale, init_scheme=init_scheme,
             init_gain=init_gain, compute_dtype=compute_dtype,
             generator=generator)
-        self.stride, self.dilation, self.groups = stride, dilation, groups
-        self.padding = padding
-        total = dilation * (kernel_size - 1)
-        self.pads = (0, 0) if padding == "valid" else (total // 2,
-                                                       total - total // 2)
+        self.stride, self.dilation = per_axis(stride), per_axis(dilation)
+        self.groups, self.padding = groups, padding
+        # F.pad order: the last axis first, (lo, hi) for each.
+        pads = []
+        for k, d in zip(reversed(kernel), reversed(self.dilation)):
+            total = 0 if padding == "valid" else d * (k - 1)
+            pads += [total // 2, total - total // 2]
+        self.pads = tuple(pads)
+        self._conv = F.conv1d if ndim == 1 else F.conv2d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.pads != (0, 0):
+        if any(self.pads):
             mode = "reflect" if self.padding == "reflect" else "constant"
             x = F.pad(x, self.pads, mode=mode)
-        w = self.kernel().permute(2, 1, 0)  # [Cout, Cin/g, K]
+        k = self.kernel()
+        w = k.permute(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
         cdt = self.compute_dtype
-        return F.conv1d(x.to(cdt), w.to(cdt), self._bias(), stride=self.stride,
-                        dilation=self.dilation, groups=self.groups)
+        return self._conv(x.to(cdt), w.to(cdt), self._bias(),
+                          stride=self.stride, dilation=self.dilation,
+                          groups=self.groups)
 
 
 def conv_transpose_padding(kernel_size: int, stride: int) -> tuple[int, int]:
@@ -160,3 +186,11 @@ class WNConvTranspose1d(_WNBase):
                                  stride=self.stride,
                                  padding=self.torch_padding)
         return out[..., : x.shape[-1] * self.stride]
+
+
+def avg_pool1d(x: torch.Tensor, window: int, stride: int,
+               pad: int) -> torch.Tensor:
+    """Average pool over the last axis of ``[B, C, L]``, zero-padded by
+    ``pad`` per side and divided by the unpadded window overlap (AvgPool1d
+    with ``count_include_pad=False``), as between the MSD's scales."""
+    return F.avg_pool1d(x, window, stride, pad, count_include_pad=False)

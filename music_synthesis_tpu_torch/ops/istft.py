@@ -31,7 +31,12 @@ def irdft_matrices(n_fft: int) -> tuple[np.ndarray, np.ndarray]:
 
 @functools.lru_cache(maxsize=16)
 def _irdft_tensors(n_fft: int, device: torch.device):
-    return tuple(torch.from_numpy(m).to(device) for m in irdft_matrices(n_fft))
+    # Normal tensors even when first asked for under inference_mode (as
+    # copy-synthesis and serving run), so that a training step in the same
+    # process can save them for its backward.
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(m).to(device)
+                     for m in irdft_matrices(n_fft))
 
 
 def istft_synthesis(re: torch.Tensor, im: torch.Tensor, n_fft: int,

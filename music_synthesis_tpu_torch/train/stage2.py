@@ -1,0 +1,288 @@
+"""Stage-2 vocoder GAN training (counterpart of ``train/stage2.py``).
+
+``train_step`` takes one D update on the detached fake (hinge or logistic
+loss, optional R1 penalty and instance noise), then one G update against
+the *updated* D (adversarial, feature-matching and multi-resolution STFT
+terms, optional frame-energy and phase terms), then the EMA of G. It
+returns a new ``GANState`` (the old one is not changed) and the metrics
+of the JAX step, under the same keys, as Python floats.
+
+The step is eager PyTorch on the state's device; the modules are fixed per
+config and called with the state's parameters (``torch.func.
+functional_call``), so neither player's ``.grad`` is ever written: each
+gradient is ``torch.autograd.grad`` of one loss with respect to one
+player's parameters. The G forward of the D step and the G step is one
+forward (G's parameters do not change in between, so the JAX step's two
+forwards give the same tensor).
+
+The conditioning mel is computed inside the step, with no gradient: with
+``cfg.train.use_pallas_frontend`` by the fused log-mel kernel
+(``ops/logmel.py``; the kernel on the card, its plain version on the CPU),
+otherwise by ``ops/frontend.log_mel_for_vocoder``.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from music_synthesis_tpu_torch._device import resolve_device
+from music_synthesis_tpu_torch.config import PipelineConfig
+from music_synthesis_tpu_torch.losses.gan import (
+    d_loss_fn,
+    feature_matching_loss,
+    g_loss_fn,
+)
+from music_synthesis_tpu_torch.losses.phase_loss import phase_coherence_loss
+from music_synthesis_tpu_torch.losses.stft_loss import multires_stft_loss
+from music_synthesis_tpu_torch.models.discriminators import (
+    CombinedDiscriminator,
+)
+from music_synthesis_tpu_torch.models.vocoder import Vocoder
+from music_synthesis_tpu_torch.ops.frontend import log_mel_for_vocoder
+from music_synthesis_tpu_torch.ops.logmel import fused_log_mel_for_vocoder
+from music_synthesis_tpu_torch.train.state import (
+    GANState,
+    global_norm,
+    make_optimizer,
+)
+
+__all__ = ["make_models", "conditioning_mel", "make_train_state",
+           "noise_scale", "train_step", "train_step_many"]
+
+
+def make_models(cfg: PipelineConfig,
+                generator: torch.Generator | None = None):
+    """The vocoder G and the combined MSD+MRD D of ``cfg``."""
+    return (Vocoder(cfg.vocoder, generator),
+            CombinedDiscriminator(cfg.msd, cfg.mrd, generator))
+
+
+@functools.lru_cache(maxsize=8)
+def _modules(cfg: PipelineConfig):
+    """G and D without storage, called with the state's parameters."""
+    with torch.device("meta"):
+        return make_models(cfg)
+
+
+def conditioning_mel(wav: torch.Tensor, cfg: PipelineConfig,
+                     precision: str = "fast") -> torch.Tensor:
+    """Normalized log-mel conditioning ``[B, L // hop, n_mels]``, no
+    gradient. ``precision`` is the fused kernel's mode."""
+    with torch.no_grad():
+        if cfg.train.use_pallas_frontend:
+            mel = fused_log_mel_for_vocoder(wav, cfg.frontend, precision)
+        else:
+            mel = log_mel_for_vocoder(wav, cfg.frontend)
+        return (mel - cfg.mel_scaler.shift) / cfg.mel_scaler.scale
+
+
+def make_train_state(cfg: PipelineConfig, seed: int | None = None,
+                     device: str | torch.device | None = None) -> GANState:
+    """Seeded G and D parameters, zeroed Adam states, step 0, on ``device``
+    (``cuda`` unless told otherwise). ``seed`` defaults to
+    ``cfg.train.seed``; the instance-noise generator is seeded with
+    ``seed + 1``."""
+    dev = resolve_device(device)
+    seed = cfg.train.seed if seed is None else seed
+    gen, disc = make_models(cfg, torch.Generator().manual_seed(seed))
+    g_params = {k: v.detach().to(dev) for k, v in gen.named_parameters()}
+    d_params = {k: v.detach().to(dev) for k, v in disc.named_parameters()}
+    t = cfg.train
+    return GANState(
+        step=0, g_params=g_params, d_params=d_params,
+        g_opt=make_optimizer(t.g_lr, t).init(g_params),
+        d_opt=make_optimizer(t.d_lr, t).init(d_params),
+        rng=torch.Generator(device=dev).manual_seed(seed + 1),
+        g_ema=({k: v.clone() for k, v in g_params.items()}
+               if t.ema_decay > 0 else None))
+
+
+def noise_scale(cfg: PipelineConfig, step: int) -> float:
+    """Instance-noise sigma at ``step``, in fp32 as the JAX step computes it:
+    ``d_input_noise * max(0, 1 - step / d_noise_decay_steps)``."""
+    t = cfg.train
+    s = np.float32(t.d_input_noise)
+    if t.d_noise_decay_steps > 0:
+        frac = np.float32(step) / np.float32(t.d_noise_decay_steps)
+        s = s * np.maximum(np.float32(0.0), np.float32(1.0) - frac)
+    return float(s)
+
+
+def _copy_generator(rng: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=rng.device)
+    out.set_state(rng.get_state())
+    return out
+
+
+def _frame_rms(x: torch.Tensor, hop: int) -> torch.Tensor:
+    f = x[:, : (x.shape[1] // hop) * hop].reshape(x.shape[0], -1, hop)
+    return torch.sqrt(torch.mean(torch.square(f), -1) + 1e-8)
+
+
+def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
+          noise, precision: str):
+    """One D and one G update; the metrics stay tensors on the device."""
+    t = cfg.train
+    gen, disc = _modules(cfg)
+    g_tx, d_tx = make_optimizer(t.g_lr, t), make_optimizer(t.d_lr, t)
+    dev = next(iter(state.g_params.values())).device
+    wav = torch.as_tensor(wav, dtype=torch.float32, device=dev)
+    b = wav.shape[0]
+
+    mel = conditioning_mel(wav, cfg, precision)
+    g_names = list(state.g_params)
+    g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
+    g_in = dict(zip(g_names, g_leaves))
+
+    def run_g(x):
+        return functional_call(gen, g_in, (x,))
+
+    fake = (checkpoint(run_g, mel, use_reentrant=False)
+            if t.remat_generator else run_g(mel))
+    fake_sg = fake.detach()
+
+    # Instance noise: three normals, the third reused (with gradients) on
+    # the G side. ``noise`` replaces the draw from the state's generator.
+    rng = _copy_generator(state.rng)
+    d_real_in, d_fake_in, g_noise = wav, fake_sg, None
+    if t.d_input_noise > 0:
+        if noise is None:
+            noise = [torch.randn(wav.shape, generator=rng, device=dev)
+                     for _ in range(3)]
+        n1, n2, n3 = (torch.as_tensor(n, dtype=torch.float32, device=dev)
+                      for n in noise)
+        s = noise_scale(cfg, state.step)
+        d_real_in, d_fake_in, g_noise = wav + s * n1, fake_sg + s * n2, s * n3
+
+    # --- D step, on the detached fake ---
+    d_names = list(state.d_params)
+    d_leaves = [p.detach().requires_grad_() for p in state.d_params.values()]
+    d_in = dict(zip(d_names, d_leaves))
+    if t.concat_disc_batch:
+        logits, feats = functional_call(
+            disc, d_in, (torch.cat([d_real_in, d_fake_in]),))
+        real_logits = [l[:b] for l in logits]
+        fake_logits = [l[b:] for l in logits]
+        real_feats = [[f[:b] for f in head] for head in feats]
+    else:
+        real_logits, real_feats = functional_call(disc, d_in, (d_real_in,))
+        fake_logits, _ = functional_call(disc, d_in, (d_fake_in,))
+    d_loss = d_loss_fn(t.gan_loss)(real_logits, fake_logits)
+    metrics = {}
+    if t.r1_gamma > 0:
+        # R1 on D(real): the input gradient of the summed logits (samples
+        # are independent), kept in the graph so D's gradient flows
+        # through it.
+        x = d_real_in.detach().requires_grad_()
+        ls, _ = functional_call(disc, d_in, (x,))
+        (gx,) = torch.autograd.grad(sum(l.float().sum() for l in ls), x,
+                                    create_graph=True)
+        per_sample = gx.float().square().sum(dim=tuple(range(1, gx.ndim)))
+        r1 = 0.5 * t.r1_gamma * per_sample.mean()
+        d_loss = d_loss + r1
+        metrics["d_r1"] = r1.detach()
+    d_grads = list(torch.autograd.grad(d_loss, d_leaves))
+    d_grad_norm = global_norm(d_grads)
+    # Warmup gate: D's update and Adam state stay as they are.
+    adv_on = t.g_warmup_steps <= 0 or state.step >= t.g_warmup_steps
+    if adv_on:
+        d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
+                                      state.d_opt)
+        d_update_norm = global_norm(d_updates)
+        d_params = dict(zip(d_names, torch._foreach_add(
+            list(state.d_params.values()), d_updates)))
+    else:
+        d_opt, d_params = state.d_opt, state.d_params
+        d_update_norm = torch.zeros((), device=dev)
+    real_feats_d = [[f.detach() for f in head] for head in real_feats]
+
+    # --- G step, against the updated D (which takes no gradient) ---
+    fake_g_in = fake if g_noise is None else fake + g_noise
+    fake_logits, fake_feats = functional_call(disc, d_params, (fake_g_in,))
+    if t.reuse_real_features and t.d_input_noise == 0:
+        real_feats_g = real_feats_d
+    else:
+        # With instance noise the D step's taps saw the noised batch; the
+        # FM target comes from the clean one.
+        with torch.no_grad():
+            _, real_feats_g = functional_call(disc, d_params, (wav,))
+    adv = g_loss_fn(t.gan_loss)(fake_logits)
+    fm = feature_matching_loss(real_feats_g, fake_feats)
+    stft = multires_stft_loss(fake, wav, cfg.stft_loss)
+    adv_w = 1.0 if adv_on else 0.0
+    total = (adv_w * (adv + t.lambda_feature_matching * fm)
+             + t.lambda_stft * stft)
+    aux = {"g_adv": adv, "g_fm": fm, "g_stft": stft}
+    if t.lambda_energy > 0:
+        hop = cfg.frontend.hop_length
+        energy = torch.mean(torch.abs(_frame_rms(fake, hop)
+                                      - _frame_rms(wav, hop)))
+        total = total + t.lambda_energy * energy
+        aux["g_energy"] = energy
+    if t.lambda_phase > 0:
+        ph = phase_coherence_loss(fake, wav, t.phase_n_fft, t.phase_hop)
+        total = total + t.lambda_phase * ph
+        aux["g_phase"] = ph
+    g_grads = list(torch.autograd.grad(total, g_leaves))
+    g_grad_norm = global_norm(g_grads)
+    g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)), state.g_opt)
+    g_update_norm = global_norm(g_updates)
+    g_params = dict(zip(g_names, torch._foreach_add(
+        list(state.g_params.values()), g_updates)))
+
+    g_ema = state.g_ema
+    if t.ema_decay > 0:
+        ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
+                                 t.ema_decay)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            list(g_params.values()), 1.0 - t.ema_decay))
+        g_ema = dict(zip(g_names, ema))
+
+    new_state = GANState(step=state.step + 1, g_params=g_params,
+                         d_params=d_params, g_opt=g_opt, d_opt=d_opt,
+                         rng=rng, g_ema=g_ema)
+    rms_ratio = torch.sqrt((torch.mean(torch.square(fake_sg)) + 1e-12)
+                           / (torch.mean(torch.square(wav)) + 1e-12))
+    out = {"d_loss": d_loss.detach(), "g_loss": total.detach(),
+           "g_rms_ratio": rms_ratio,
+           **{k: v.detach() for k, v in aux.items()}, **metrics,
+           "d_grad_norm": d_grad_norm, "g_grad_norm": g_grad_norm,
+           "d_update_norm": d_update_norm, "g_update_norm": g_update_norm}
+    return new_state, out
+
+
+def _floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
+    """Every metric as a Python float, with one device synchronisation."""
+    values = torch.stack([v.float() for v in metrics.values()]).tolist()
+    return dict(zip(metrics, values))
+
+
+def train_step(cfg: PipelineConfig, state: GANState, wav,
+               noise=None, precision: str = "fast"
+               ) -> tuple[GANState, dict[str, float]]:
+    """One alternating D/G update on a waveform batch ``[B, L]``.
+
+    ``noise``: the three standard-normal ``[B, L]`` realisations of the
+    instance noise (tensors or arrays), in place of draws from
+    ``state.rng``; used only when ``cfg.train.d_input_noise > 0``.
+    ``precision``: the fused log-mel kernel's mode ("fast" or "exact").
+    """
+    new_state, metrics = _step(cfg, state, wav, noise, precision)
+    return new_state, _floats(metrics)
+
+
+def train_step_many(cfg: PipelineConfig, state: GANState, wavs
+                    ) -> tuple[GANState, dict[str, float]]:
+    """``len(wavs)`` chained steps over ``wavs [K, B, L]``, the same as K
+    ``train_step`` calls; returns the last step's metrics."""
+    metrics = None
+    for wav in wavs:
+        state, metrics = _step(cfg, state, wav, None, "fast")
+    if metrics is None:
+        raise ValueError("train_step_many needs at least one batch")
+    return state, _floats(metrics)

@@ -25,7 +25,7 @@ from music_synthesis_tpu_torch.config import (
     MelScaler,
     SpecGANConfig,
     VocoderConfig,
-    config_from_dict,
+    section_from_dict,
 )
 from music_synthesis_tpu_torch.convert import to_state_dict
 
@@ -71,16 +71,16 @@ def load_pretrained(name: str, root: Path | str = ZOO_ROOT) -> PretrainedEntry:
             f"no zoo entry at {entry_dir}; available: "
             f"{list_pretrained(root) or 'none'}")
     card = json.loads(card_file.read_text())
-    cfg = config_from_dict(_KIND_TO_CONFIG[card["kind"]], card["config"])
+    cfg = section_from_dict(_KIND_TO_CONFIG[card["kind"]], card["config"])
     sd = to_state_dict(
         _msgpack.restore((entry_dir / "params.msgpack").read_bytes()))
     n = sum(t.numel() for t in sd.values())
     if n != card["n_params"]:
         raise ValueError(f"zoo entry {card['name']}: params.msgpack has {n} "
                          f"parameters but card says {card['n_params']}")
-    fe = (config_from_dict(FrontendConfig, card["frontend"])
+    fe = (section_from_dict(FrontendConfig, card["frontend"])
           if card.get("frontend") else None)
-    ms = (config_from_dict(MelScaler, card["mel_scaler"])
+    ms = (section_from_dict(MelScaler, card["mel_scaler"])
           if card.get("mel_scaler") else None)
     return PretrainedEntry(name=card["name"], kind=card["kind"], config=cfg,
                            state_dict=sd, frontend=fe, mel_scaler=ms, card=card)

@@ -4,16 +4,23 @@
     python3 scripts/profile_torch_port.py [--seed 0] [--steps 5]
 
 Profiles, after a warm-up, ``--steps`` steady calls of each of the port's
-two entry points at full width with the committed zoo weights:
+entry points at full width with the committed zoo weights:
 
 - copy-synthesis of [16, 8192] (``infer.copy_synthesis.CopySynthesizer``,
   the zoo vocoder in its card's bf16);
-- one 4 s serving request (``serve.SynthService``, fp32).
+- one 4 s serving request (``serve.SynthService``, fp32);
+- one stage-2 training step of the flagship at [16, 8192] in bf16
+  (``train.stage2.train_step``; ``train.flagship.flagship_config``, G from
+  the zoo, D seeded, past the warmup gate; each call starts from the same
+  state).
 
-For each it prints the wall time per call, the device-busy share of the
-window (summed kernel time over wall time; overlapping kernels would count
-twice, and the port runs one stream), and the kernels that took the most
-device time. Needs a CUDA card.
+For each it prints the wall time per call, the summed kernel time and the
+kernel launches per call, the device-busy share of the window (summed
+kernel time over wall time; overlapping kernels would count twice, and the
+port runs one stream), and the kernels that took the most device time.
+The profiler adds host time to every launch, so the wall time here is
+above the unprofiled one (``chip_smoke.py`` times the step with CUDA
+events). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 
-def profile(name: str, fn, steps: int) -> None:
+def profile(name: str, fn, steps: int, top: int = 12) -> None:
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     for _ in range(2):
@@ -46,9 +53,12 @@ def profile(name: str, fn, steps: int) -> None:
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     device_us = sum(e.self_device_time_total for e in events)
+    launches = sum(e.count for e in events) // steps
     print(f"[{name}] {steps} calls, wall {wall / steps * 1e3:.3f} ms per call, "
-          f"device busy {device_us / 1e6 / wall:.3f} of the window")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+          f"device {device_us / steps / 1e3:.3f} ms and {launches} kernel "
+          f"launches per call, device busy {device_us / 1e6 / wall:.3f} of "
+          f"the window")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{name}]   {e.self_device_time_total / steps / 1e3:9.4f} ms/call "
               f"x{e.count // steps:<4d} {e.key[:90]}")
 
@@ -74,6 +84,23 @@ def main() -> int:
     profile("copy [16, 8192]", lambda: cs(x), args.steps)
     svc = SynthService(ServeConfig(batch_buckets=(1,), patch_buckets=(4,)))
     profile("serve 4 s x 1", lambda: svc.synth(4.0, seed=3), args.steps)
+
+    import dataclasses
+
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.flagship import (flagship_config,
+                                                          zoo_train_state)
+
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg = flagship_config(entry)
+    state = zoo_train_state(cfg, entry)
+    state = dataclasses.replace(state, step=cfg.train.g_warmup_steps)
+    torch.cuda.reset_peak_memory_stats()
+    profile("train step [16, 8192]",
+            lambda: stage2.train_step(cfg, state, x), args.steps, top=20)
+    print(f"[train step [16, 8192]] peak memory "
+          f"{torch.cuda.max_memory_allocated()} B")
     return 0
 
 

@@ -12,7 +12,12 @@ plain version, in both modes ("exact": fp32 FFMA in the cuBLAS GEMM's
 summation order, ~1e-6 apart; "fast": 3xTF32 on the tensor cores, up to
 ~7e-4 apart in near-silent mel bins, within the relative term at log-mel
 magnitudes of 5-12); 2e-3 for the fp32 vocoder on the card (cuDNN, TF32
-off) against the CPU.
+off) against the CPU; for one TINY training step from a D whose logits
+are well away from 0 and whose Adam second moment is 1 (so that the
+update the G step runs against is continuous in the gradient), card
+(fp32, TF32 off, the "exact" kernel) against the CPU, 5e-5 relative on
+the losses and 3e-4 on the gradient norms, as ``chip_smoke.py``'s
+``TRAIN_TOL``, which the same step with TF32 on must fail.
 """
 
 import numpy as np
@@ -127,3 +132,73 @@ def test_service_on_the_card(cuda):
     again, _ = svc.synth(1.0, seed=3)
     assert wav.shape == (1, meta["samples"]) and np.isfinite(wav).all()
     np.testing.assert_array_equal(wav, again)
+
+
+def _he_gain_d(d_params, seed, out_gain):
+    """D's gains at He's sqrt(2) (+-30%), small biases and the heads'
+    output gains at ``out_gain`` (as ``chip_smoke.he_gain_d``): features
+    of order 1 and logits well away from D's init, where they sit near 0;
+    the output gains keep R1, which grows with the logits' scale, from
+    burying the hinge terms."""
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in d_params.items():
+        r = torch.randn(v.shape, generator=gen).to(v.device)
+        gain = (out_gain[k.split(".")[0]] if k.endswith(".conv_out.g")
+                else 2 ** 0.5)
+        out[k] = (gain * (1.0 + 0.3 * r) if k.endswith(".g")
+                  else 0.05 * r if k.endswith(".b") else v)
+    return out
+
+
+def test_tiny_train_step_on_the_card_matches_cpu(cuda):
+    import dataclasses
+
+    from music_synthesis_tpu_torch.config import TINY
+    from music_synthesis_tpu_torch.train import stage2
+
+    cfg = dataclasses.replace(TINY, train=dataclasses.replace(
+        TINY.train, use_pallas_frontend=True, d_input_noise=0.1,
+        r1_gamma=1.0, ema_decay=0.999, concat_disc_batch=True))
+    wav = _signal((2, 2048), seed=2)
+    rng = np.random.default_rng(3)
+    noise = [rng.standard_normal((2, 2048)).astype(np.float32)
+             for _ in range(3)]
+
+    def state(device):
+        st = stage2.make_train_state(cfg, seed=0, device=device)
+        # Adam's second moment at 1: D's update, which the G step runs
+        # against, is then continuous in the gradient (a fresh Adam's is
+        # about lr * sign(g)).
+        d_opt = dataclasses.replace(st.d_opt, nu={
+            k: torch.ones_like(v) for k, v in st.d_opt.nu.items()})
+        return dataclasses.replace(st, d_params=_he_gain_d(
+            st.d_params, 4, {"msd": 0.2, "mrd": 1e-3}), d_opt=d_opt)
+
+    def card_step(tf32):
+        matmul = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                return stage2.train_step(cfg, state(cuda), wav, noise=noise,
+                                         precision="exact")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+
+    before = L.logmel_kernel.n_launches
+    new, m_gpu = card_step(False)
+    assert L.logmel_kernel.n_launches == before + 1
+    assert new.step == 1 and new.g_params["conv_in.v"].is_cuda
+    _, m_cpu = stage2.train_step(cfg, state("cpu"), wav, noise=noise)
+    assert m_gpu.keys() == m_cpu.keys()
+    assert abs(m_cpu["g_adv"]) > 1e-2, m_cpu  # D's logits away from 0
+    tol = {k: 5e-5 for k in ("d_loss", "g_loss", "g_rms_ratio", "g_adv",
+                             "g_fm", "g_stft", "d_r1")}
+    tol.update(d_grad_norm=3e-4, g_grad_norm=3e-4)
+    for k, rtol in tol.items():
+        rel = abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k])
+        assert rel <= rtol, (k, m_gpu[k], m_cpu[k], rel)
+    # The tolerances tell fp32 from TF32: the same step with TF32 on fails.
+    _, m_tf32 = card_step(True)
+    assert any(abs(m_tf32[k] - m_cpu[k]) > rtol * abs(m_cpu[k])
+               for k, rtol in tol.items()), m_tf32
