@@ -11,10 +11,11 @@ at the flagship's full width with the committed zoo weights, in phases:
 1. build: ``csrc/logmel.cu`` with nvcc; prints the build seconds, ptxas'
    register and spill lines, and the card's name and power limit;
 2. kernel vs plain: the log-mel kernel against its plain PyTorch version at
-   [16, 8192], [16, 88064] and [4, 88064] (every shape the main path gives
-   it, and the 4 s batch of 16), both precision modes (the 3xTF32
+   [16, 8192], [16, 88064], [4, 88064] and [1, 8192] (every shape the main
+   path gives it, and the 4 s batch of 16), both precision modes (the 3xTF32
    tensor-core path for "fast", the fp32 FFMA path for "exact"), the
-   vocoder and plain variants, power 2 and 1, and 160 mels at [16, 8192];
+   vocoder and plain variants, power 2 and 1, and 160 mels at [16, 8192]
+   ([1, 8192], the stage-2 CLI's audio dump, in the vocoder variant);
    max abs error <= 2e-4 ("exact"), <= 2e-2 ("fast"); the times of both
    paths and of the plain version (median of 21 CUDA-event samples of 10
    back-to-back calls, after warm-up) beside two bounds: fp32 FFMA, and
@@ -42,25 +43,55 @@ at the flagship's full width with the committed zoo weights, in phases:
    [2, 8192] in fp32 with TF32 off on the card (the "exact" kernel), from
    a D whose logits are away from 0, against the same step on the CPU
    (``TRAIN_TOL``), and the same step with TF32 on, which must fail it;
-7. the ``kernels`` JSON line.
+7. stage-1 training (main path) at the composer flagship's full width
+   (``train.flagship.stage1_flagship_config``: ``zoo/specgan_flux``'s G,
+   a seeded D, batch 16 of 128 frames x 128 mels, instance noise 0.2
+   decaying over 10k steps, R1 1, flux 10, EMA 0.999) through
+   ``train.stage1.train_step`` on log-mel patches of test audio: finite
+   metrics under the JAX step's keys, G, D and the EMA moving, no kernel
+   launch (the reference's stage 1 runs none), the median step time (CUDA
+   events, 10 steps after 2 warm-ups), peak memory, and kernel launches,
+   kernel time and device busy share per step (``torch.profiler``, 3
+   steps); then one step in
+   fp32 with TF32 off from a D whose logits are away from 0 against the
+   same step on the CPU (``STAGE1_TOL``), and with TF32 on, which must
+   fail it;
+8. the lifecycle through the port's CLIs (main path), in a temporary
+   directory: ``train_stage1`` with the composer flagship's flags on the
+   synthetic corpus it writes, ``export_zoo --stage 1``, ``train_stage2``
+   with the vocoder flagship's flags (``--head istft --pallas-frontend``,
+   R1, noise, the warmup gate, EMA, bf16) at ``--batch 16 --segment 8192``
+   for 2 steps, then ``--resume`` to 4 at ``--steps-per-dispatch 2``, with
+   checkpoints and audio dumps, ``export_zoo --stage 2``, and a
+   ``SynthService`` on the two exported entries answering one 4 s request;
+   the log-mel kernel must launch once per stage-2 step and audio dump,
+   the resumed run must start at the checkpoint's step, and the audio must
+   be finite and of the requested length; each CLI's ``loop:`` line is
+   printed beside the card's name and power limit;
+9. the ``kernels`` JSON line.
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
-and again around phase 6's main-path steps.
+and again around each of phases 6, 7 and 8.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
-Needs a CUDA card; exits non-zero without one. Starts no server, no thread
-and no process other than nvcc and nvidia-smi.
+Needs a CUDA card; exits non-zero without one. Starts no server and no
+process other than nvcc and nvidia-smi; the CLIs' batch-prefetch threads
+end with each CLI.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import faulthandler
+import io
 import json
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -105,6 +136,21 @@ TRAIN_D_OUT_GAIN = {"msd": 2.0 ** 0.5, "mrd": 1e-3}
 TRAIN_LOSSES = ("d_loss", "g_loss", "g_rms_ratio", "g_adv", "g_fm", "g_stft",
                 "d_r1")
 TRAIN_GRAD_NORMS = ("d_grad_norm", "g_grad_norm")
+
+# Stage-1 training step at full width, card (fp32, cuDNN and matmul TF32
+# off) against the CPU (fp32), from a D with He gains and its output gain at
+# STAGE1_D_OUT_GAIN (logits of order 0.5: g_adv about -0.6, R1 about 2.2 of
+# a d_loss of 4.1 on the CPU) and Adam's second moment at 1:
+# |card - cpu| <= rtol * |cpu|, per metric kind. On an H100 the largest
+# gaps were 1.15e-7 on the losses (d_loss) and 2.88e-5 on the gradient
+# norms (d_grad_norm), and the same step with TF32 on was 9.2e-5 off in
+# d_loss, 1.8e-4 in d_r1 and 6.9e-4 in g_grad_norm (PERF.md): the
+# tolerances are about nine and three and a half times the fp32 gaps, and
+# the TF32 step must fail them (``check_stage1_on_cpu``).
+STAGE1_TOL = {"loss": 1e-6, "grad_norm": 1e-4}
+STAGE1_D_OUT_GAIN = 0.5
+STAGE1_LOSSES = ("d_loss", "g_loss", "g_rms_ratio", "g_adv", "g_fm", "g_flux",
+                 "d_r1")
 
 
 def log(*parts) -> None:
@@ -183,6 +229,30 @@ def test_audio(rng: np.random.Generator, batch: int, length: int,
     return out.astype(np.float32)
 
 
+def profile_launches(fn, calls: int = 3) -> dict:
+    """Kernel launches and device time per ``fn()`` call, and the device's
+    busy share of the window, from ``torch.profiler`` over ``calls`` calls
+    after a synchronise (the profiler adds host time to every launch, so
+    the window is longer than an unprofiled one)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.self_device_time_total for e in events)
+    return {"launches_per_call": sum(e.count for e in events) / calls,
+            "device_ms_per_call": device_us / calls / 1e3,
+            "profiled_wall_ms_per_call": 1e3 * wall / calls,
+            "device_busy": device_us / 1e6 / wall}
+
+
 def card_name_and_power() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     return subprocess.run(
@@ -217,6 +287,7 @@ def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
              for power in (2.0, 1.0)
              for variant in ("for_vocoder", "log_mel")]
     cases.append(((16, 8192), 2.0, 160, "for_vocoder"))
+    cases.append(((1, 8192), 2.0, 128, "for_vocoder"))  # stage-2 audio dumps
     audio = {}
     for shape, power, n_mels, variant in cases:
         if shape not in audio:
@@ -512,8 +583,10 @@ def phase_training(rng: np.random.Generator, device: str = "cuda",
 
 def he_gain_d(d_params: dict, seed: int, out_gain: dict) -> dict:
     """D's weight-norm gains set to He's sqrt(2) (+-30%), its biases to
-    small values, and the output gains of the MSD and MRD heads to
-    ``out_gain["msd"]`` and ``out_gain["mrd"]`` (+-30%).
+    small values, and the gains of each ``conv_out`` to ``out_gain`` of the
+    first name in its key (+-30%): the MSD and MRD heads' at
+    ``out_gain["msd"]`` and ``out_gain["mrd"]``, the stage-1 D's at
+    ``out_gain["conv_out"]``.
 
     At D's init each gain equals its filter's norm, so the logits sit near
     0, where the hinge losses read about 2 per head and g_adv about 0
@@ -527,8 +600,9 @@ def he_gain_d(d_params: dict, seed: int, out_gain: dict) -> dict:
     for k, v in d_params.items():
         r = torch.randn(v.shape, generator=gen).to(v.device)
         if k.endswith(".g"):
-            head = k.split(".")[0]
-            gain = out_gain[head] if k.endswith(".conv_out.g") else 2.0 ** 0.5
+            names = k.split(".")
+            gain = (out_gain[names[0]] if names[-2] == "conv_out"
+                    else 2.0 ** 0.5)
             out[k] = gain * (1.0 + 0.3 * r)
         elif k.endswith(".b"):
             out[k] = 0.05 * r
@@ -611,6 +685,261 @@ def check_training_on_cpu(seed: int = DEFAULT_PATH_SEED) -> dict:
             "card_tf32": out["card_tf32"]}
 
 
+def stage1_metric_keys(cfg) -> set:
+    """The metric keys the JAX stage-1 step returns for ``cfg``."""
+    t = cfg.train
+    keys = {"d_loss", "g_loss", "g_rms_ratio", "g_adv", "g_fm",
+            "d_grad_norm", "g_grad_norm", "d_update_norm", "g_update_norm"}
+    keys |= {"g_flux"} if t.lambda_flux > 0 else set()
+    keys |= {"d_r1"} if t.r1_gamma > 0 else set()
+    return keys
+
+
+def stage1_patches(rng: np.random.Generator, cfg, device: str) -> torch.Tensor:
+    """Normalized log-mel patches ``[B, n_frames, n_mels]`` of seeded test
+    audio, through the plain front-end as the stage-1 CLI makes them."""
+    from music_synthesis_tpu_torch.ops.frontend import log_mel_for_vocoder
+
+    seg = cfg.specgan.n_frames * cfg.frontend.hop_length
+    wav = torch.from_numpy(test_audio(rng, cfg.train.batch_size, seg,
+                                      cfg.frontend.sample_rate)).to(device)
+    with torch.no_grad():
+        mel = log_mel_for_vocoder(wav, cfg.frontend)
+    return (mel - cfg.mel_scaler.shift) / cfg.mel_scaler.scale
+
+
+def phase_stage1_training(rng: np.random.Generator) -> dict:
+    """Stage-1 steps at the composer flagship's full width (main path); the
+    caller zeroes the launch counts before and reads them after."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train import stage1
+    from music_synthesis_tpu_torch.train.flagship import (
+        stage1_flagship_config, zoo_train_state)
+
+    entry = zoo.load_pretrained("specgan_flux")
+    cfg = stage1_flagship_config(entry)
+    t, s = cfg.train, cfg.specgan
+    state = zoo_train_state(cfg, entry, "cuda", seed=t.seed)
+    mel = stage1_patches(rng, cfg, "cuda")
+    check(tuple(mel.shape) == (t.batch_size, s.n_frames, s.n_mels),
+          f"stage-1 patches {tuple(mel.shape)}")
+    keys = stage1_metric_keys(cfg)
+    g0, d0, e0 = _copy(state.g_params), _copy(state.d_params), _copy(state.g_ema)
+
+    def step(state):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = stage1.train_step(cfg, state, mel)
+        end.record()
+        end.synchronize()
+        check(set(m) == keys, f"metric keys {sorted(m)} != {sorted(keys)}")
+        check(all(np.isfinite(v) for v in m.values()), f"metrics {m}")
+        return state, m, start.elapsed_time(end)
+
+    warm = []
+    for _ in range(2):
+        state, m, ms = step(state)
+        warm.append(ms)
+    baseline = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    timed = []
+    for _ in range(10):
+        state, m, ms = step(state)
+        timed.append(ms)
+    peak = torch.cuda.max_memory_allocated()
+    last = state.step - 1
+    holder = {"state": state}
+
+    def profiled_step():
+        holder["state"], _ = stage1.train_step(cfg, holder["state"], mel)
+
+    prof = profile_launches(profiled_step)
+    state = holder["state"]
+    check(state.step == 15 and state.d_opt.count == 15, "stage-1 step count")
+    for name, before, after in (("G", g0, state.g_params),
+                                ("D", d0, state.d_params),
+                                ("EMA", e0, state.g_ema)):
+        check(not _same(before, after), f"stage-1 {name} did not move")
+    median_ms = float(np.median(timed))
+    log(f"[stage1] step {last}: " + ", ".join(
+        f"{k} {v:.5g}" for k, v in sorted(m.items())))
+    log(f"[stage1] flagship [{t.batch_size}, {s.n_frames}, {s.n_mels}] "
+        f"{s.compute_dtype}: median step {median_ms:.3f} ms (CUDA events, "
+        f"10 steps after 2 warm-ups: {', '.join(f'{x:.3f}' for x in timed)}; "
+        f"warm-ups {', '.join(f'{x:.1f}' for x in warm)}), peak memory {peak} B "
+        f"({peak - baseline} B above the {baseline} B held before)")
+    log(f"[stage1] under the profiler: {prof['launches_per_call']:.0f} kernel "
+        f"launches and {prof['device_ms_per_call']:.3f} ms of kernels per "
+        f"step, {prof['profiled_wall_ms_per_call']:.3f} ms wall per step, "
+        f"device busy {prof['device_busy']:.3f} of the window")
+    return {"median_step_ms": median_ms, "step_ms": timed, "warmup_ms": warm,
+            "peak_memory_bytes": peak, "baseline_bytes": baseline,
+            "profile": prof, "metrics": m}
+
+
+def check_stage1_on_cpu(seed: int = DEFAULT_PATH_SEED) -> dict:
+    """One stage-1 flagship step at full width in fp32 from one state (zoo
+    G, D with ``he_gain_d`` and ``warm_second_moment``, fixed patches,
+    latents and instance noise): on the card with TF32 off against the CPU
+    (``STAGE1_TOL``), and on the card with TF32 on (cuDNN and matmul),
+    which must fail it."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train import stage1
+    from music_synthesis_tpu_torch.train.flagship import (
+        stage1_flagship_config, zoo_train_state)
+
+    entry = zoo.load_pretrained("specgan_flux")
+    cfg = stage1_flagship_config(entry)
+    check(cfg.specgan.compute_dtype == "float32", "stage-1 flagship is fp32")
+    rng = np.random.default_rng(seed)
+    mel = stage1_patches(rng, cfg, "cpu")
+    z = rng.standard_normal((mel.shape[0], cfg.specgan.latent_dim)).astype(
+        np.float32)
+    noise = [rng.standard_normal(tuple(mel.shape)).astype(np.float32)
+             for _ in range(3)]
+    out = {}
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        for run, device, tf32 in (("cpu", "cpu", False),
+                                  ("card", "cuda", False),
+                                  ("card_tf32", "cuda", True)):
+            state = zoo_train_state(cfg, entry, device, seed=cfg.train.seed)
+            state = dataclasses.replace(
+                state, d_params=he_gain_d(state.d_params, seed,
+                                          {"conv_out": STAGE1_D_OUT_GAIN}),
+                d_opt=warm_second_moment(state.d_opt))
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                _, out[run] = stage1.train_step(cfg, state, mel, z=z,
+                                                noise=noise)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    cpu = out["cpu"]
+    kinds = {k: kind for names, kind in ((STAGE1_LOSSES, "loss"),
+                                         (TRAIN_GRAD_NORMS, "grad_norm"))
+             for k in names}
+    rel = {run: {k: abs(out[run][k] - cpu[k]) / abs(cpu[k]) for k in kinds}
+           for run in ("card", "card_tf32")}
+    for run, label in (("card", "TF32 off"), ("card_tf32", "TF32 on")):
+        log(f"[stage1] card ({label}) vs CPU, fp32 {list(mel.shape)}: "
+            f"|diff| / |cpu| " + ", ".join(f"{k} {v:.3g}"
+                                           for k, v in rel[run].items()))
+    log(f"[stage1] CPU metrics: {cpu}")
+    check(abs(cpu["g_adv"]) > 1e-2,
+          f"D's logits sit near 0 (g_adv {cpu['g_adv']}): the check would "
+          f"not read D's forward")
+    for k, kind in kinds.items():
+        check(rel["card"][k] <= STAGE1_TOL[kind],
+              f"stage-1 step card vs CPU: {k} {out['card'][k]} vs {cpu[k]}, "
+              f"|diff| / |cpu| {rel['card'][k]:.3g} > {STAGE1_TOL[kind]}")
+    check(any(rel["card_tf32"][k] > STAGE1_TOL[kind] for k, kind in kinds.items()),
+          "the same stage-1 step with TF32 on passes STAGE1_TOL: it does not "
+          "tell fp32 from TF32")
+    return {"rel_diff": rel["card"], "rel_diff_tf32": rel["card_tf32"],
+            "tolerance": STAGE1_TOL, "card": out["card"], "cpu": cpu,
+            "card_tf32": out["card_tf32"]}
+
+
+STAGE1_CLI_FLAGS = [  # runs/stage1_flux_40k's recipe
+    "--batch", "16", "--init-scheme", "he", "--res-init-gain", "0.1",
+    "--out-init-gain", "0.1", "--r1-gamma", "1", "--d-noise", "0.2",
+    "--noise-decay-steps", "10000", "--ema", "0.999", "--lambda-flux", "10",
+    "--auto-mel-stats"]
+STAGE2_CLI_FLAGS = [  # runs/stage2_istft_long's recipe
+    "--batch", "16", "--segment", "8192", "--head", "istft",
+    "--init-scheme", "he", "--bf16-gen", "--bf16-disc", "--dense-groups",
+    "16", "--f-fold", "4", "--pallas-frontend", "--r1-gamma", "1",
+    "--d-noise", "0.1", "--noise-decay-steps", "20000", "--g-warmup", "5000",
+    "--ema", "0.999", "--reuse-real-feats", "--concat-disc",
+    "--auto-mel-stats"]
+
+
+def run_cli(module, argv: list[str]) -> list[str]:
+    """``module.main(argv)`` in this process; its standard output is
+    captured, printed with a prefix, and returned as lines."""
+    buf = io.StringIO()
+    name = module.__name__.rsplit(".", 1)[-1]
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            module.main(argv)
+    finally:  # shown also when the CLI fails
+        lines = buf.getvalue().splitlines()
+        for line in lines:
+            log(f"[lifecycle] {name}: {line}")
+    log(f"[lifecycle] {name} took {time.perf_counter() - t0:.1f} s")
+    return lines
+
+
+def phase_lifecycle() -> dict:
+    """train_stage1 -> export_zoo -> train_stage2 (and --resume) ->
+    export_zoo -> SynthService, in a temporary directory (main path); the
+    caller zeroes the launch counts before and reads them after."""
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.scripts import (export_zoo, train_stage1,
+                                                   train_stage2)
+    from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
+
+    card = card_name_and_power()
+    out = {"loop": {}}
+    with tempfile.TemporaryDirectory(prefix="lifecycle_") as tmp:
+        tmp = Path(tmp)
+        run1, run2, zoo_root = tmp / "stage1", tmp / "stage2", tmp / "zoo"
+        lines = run_cli(train_stage1, STAGE1_CLI_FLAGS + [
+            "--steps", "4", "--log-every", "2", "--ckpt-every", "4",
+            "--outdir", str(run1)])
+        out["loop"]["train_stage1"] = next(x for x in lines if x.startswith("loop:"))
+        check(logmel_kernel.n_launches == 0, "stage 1 launched the kernel")
+        corpus = run1 / "synthetic_corpus"
+        check(len(list(corpus.glob("*.wav"))) == 8, "the CLI's corpus")
+        run_cli(export_zoo, ["--run", str(run1), "--stage", "1", "--name",
+                             "composer", "--root", str(zoo_root)])
+
+        common = STAGE2_CLI_FLAGS + ["--corpus", str(corpus), "--log-every",
+                                     "2", "--ckpt-every", "2",
+                                     "--audio-every", "2", "--outdir", str(run2)]
+        first = run_cli(train_stage2, common + ["--steps", "2"])
+        resumed = run_cli(train_stage2, common + [
+            "--steps", "4", "--resume", "--steps-per-dispatch", "2"])
+        out["loop"]["train_stage2"] = next(x for x in first if x.startswith("loop:"))
+        out["loop"]["train_stage2_resumed"] = next(
+            x for x in resumed if x.startswith("loop:"))
+        check("resumed from step 2" in resumed,
+              "the resumed run did not start at the checkpoint's step")
+        logged = [json.loads(x)["step"] for x in
+                  (run2 / "metrics.jsonl").read_text().splitlines()]
+        check(logged == [1, 2, 4], f"stage-2 logged steps {logged}")
+        dumps = sorted(p.name for p in run2.glob("vocoded_*.wav"))
+        check(dumps == ["vocoded_0000002.wav", "vocoded_0000004.wav"],
+              f"audio dumps {dumps}")
+        stage2_launches = logmel_kernel.n_launches
+        check(stage2_launches == 4 + len(dumps),
+              f"{stage2_launches} log-mel launches for 4 stage-2 steps and "
+              f"{len(dumps)} audio dumps")
+        run_cli(export_zoo, ["--run", str(run2), "--stage", "2", "--name",
+                             "vocoder", "--root", str(zoo_root)])
+
+        svc = SynthService(ServeConfig(composer=str(zoo_root / "composer"),
+                                       vocoder=str(zoo_root / "vocoder")),
+                           warmup=False)
+        check(svc.device.type == "cuda", "service on the card")
+        wav, meta = svc.synth(4.0, seed=3)
+        n = svc.patches_for_seconds(4.0)
+        want = min(int(round(4.0 * svc.cfg.frontend.sample_rate)),
+                   svc.out_samples(n))
+        check(wav.shape == (1, want), f"served shape {wav.shape}")
+        check(bool(np.isfinite(wav).all()), "served audio not finite")
+        check(float(np.abs(wav).max()) > 0.0, "served audio is silent")
+        log(f"[lifecycle] served 4 s from the exported pair: {wav.shape[1]} "
+            f"samples, latency {meta['gen_ms']:.2f} ms")
+    for name, line in out["loop"].items():
+        log(f"[lifecycle] {name} {line} on {card}")
+    out.update(stage2_launches=stage2_launches, audio_dumps=len(dumps),
+               serve_latency_ms=meta["gen_ms"], card=card)
+    return out
+
+
 def cpu_gaps() -> dict:
     """The CPU's own max abs gaps between bf16 and fp32 at the default-path
     checks' inputs and weights: copy-synthesis (waveform and distance) and
@@ -684,7 +1013,27 @@ def main() -> int:
         f"peak memory {training['peak_memory_bytes'] / 2**30:.3f} GiB, on "
         f"{card_name_and_power()}")
 
-    log("== phase 7: kernels")
+    log("== phase 7: stage-1 training (main path), and against the CPU")
+    logmel_kernel.n_launches = 0
+    stage1_train = phase_stage1_training(rng)
+    launches["stage1_train"] = logmel_kernel.n_launches
+    check(launches["stage1_train"] == 0,
+          "stage-1 training launched the log-mel kernel (the reference's "
+          "stage 1 runs no kernel)")
+    stage1_err = check_stage1_on_cpu()
+    log(f"[stage1] median step {stage1_train['median_step_ms']:.3f} ms, peak "
+        f"memory {stage1_train['peak_memory_bytes'] / 2**30:.3f} GiB, on "
+        f"{card_name_and_power()}")
+
+    log("== phase 8: train -> export -> serve through the CLIs (main path)")
+    logmel_kernel.n_launches = 0
+    lifecycle = phase_lifecycle()
+    launches["lifecycle"] = logmel_kernel.n_launches
+    log(f"[main] kernel launches in the lifecycle: {launches['lifecycle']}")
+    check(launches["lifecycle"] == lifecycle["stage2_launches"],
+          "serving the exported pair launched the log-mel kernel")
+
+    log("== phase 9: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
                     and r["n_mels"] == 128)
@@ -693,7 +1042,7 @@ def main() -> int:
         "route": "cuda",
         "source": "music_synthesis_tpu_torch/csrc/logmel.cu",
         "replaces": "music_synthesis_tpu/ops/pallas_frontend.py:207",
-        "launches": launches["logmel"] + launches["train"],
+        "launches": sum(launches.values()),
         "max_abs_err": max(kv["worst"].values()),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
@@ -710,13 +1059,18 @@ def main() -> int:
         "build_s": build.seconds,
         "shape": [16, 8192],
         "launches_by_path": {"copy_synthesis_and_serving": launches["logmel"],
-                             "train_step": launches["train"]},
+                             "train_step": launches["train"],
+                             "stage1_train_step": launches["stage1_train"],
+                             "lifecycle_clis": launches["lifecycle"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
                "serve_card_vs_cpu_err": serve_err,
                "train_step": training,
                "train_card_vs_cpu_err": train_err,
+               "stage1_train_step": stage1_train,
+               "stage1_card_vs_cpu_err": stage1_err,
+               "lifecycle": lifecycle,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

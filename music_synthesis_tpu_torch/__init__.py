@@ -3,8 +3,10 @@
 The JAX package is the reference; this package mirrors its module names so
 each module's counterpart is easy to find, and imports nothing from it.
 Entry points (``serve.SynthService``, ``infer.copy_synthesis``,
-``train.stage2.make_train_state`` / ``train_step``) run on ``cuda`` unless
-the caller passes ``device="cpu"``.
+``train.stage1`` / ``train.stage2`` ``make_train_state`` and
+``train_step``, and the CLIs ``python -m music_synthesis_tpu_torch.scripts.
+{train_stage1, train_stage2, export_zoo}``) run on ``cuda`` unless the
+caller passes ``device="cpu"`` (``--device cpu``).
 
 The one TPU kernel of the reference, the fused log-mel front-end, is a
 hand-written CUDA kernel here (``csrc/logmel.cu``, wrapped by

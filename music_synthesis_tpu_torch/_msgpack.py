@@ -1,16 +1,17 @@
-"""A small msgpack reader for Flax-serialized parameter files.
+"""A small msgpack reader and writer for Flax-serialized parameter files.
 
 The zoo's ``params.msgpack`` files are written by
 ``flax.serialization.to_bytes``: msgpack maps of str -> map or array leaf,
 where each array leaf is ext type 1 whose payload is itself msgpack
-``(shape, dtype_name, raw C-order bytes)``. This module reads that format
-with the standard library and numpy alone, because the machine that runs
-the port has no ``msgpack`` package.
+``(shape, dtype_name, raw C-order bytes)``. This module reads and writes
+that format with the standard library and numpy alone, because the machine
+that runs the port has no ``msgpack`` package. ``to_bytes`` gives the bytes
+Flax gives for the same tree of numpy arrays.
 
-Only decoding is implemented, and of Flax's extension types only the
-ndarray one (scalars, complex numbers and arrays chunked above 1 GiB do not
-occur in parameter files; they raise). Arrays come back as read-only
-``np.frombuffer`` views, as Flax returns them.
+Of Flax's extension types only the ndarray one is handled (scalars,
+complex numbers and arrays chunked above 1 GiB do not occur in parameter
+files; they raise). Arrays come back as read-only ``np.frombuffer`` views,
+as Flax returns them.
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from typing import Any
 
 import numpy as np
 
-__all__ = ["unpackb", "restore"]
+__all__ = ["unpackb", "restore", "packb", "to_bytes"]
 
 _EXT_NDARRAY = 1
 
@@ -130,3 +131,85 @@ def restore(data: bytes) -> Any:
     if not isinstance(tree, dict):
         raise ValueError("not a Flax parameter tree")
     return tree
+
+
+def _head(out: bytearray, n: int, fix: int | None, fix_max: int,
+          codes: tuple[int, ...]) -> None:
+    """A length header: the fix form for ``n <= fix_max``, else the first
+    of ``codes`` (8/16/32-bit or 16/32-bit lengths) whose width holds n."""
+    if fix is not None and n <= fix_max:
+        out.append(fix | n)
+        return
+    widths = (1, 2, 4)[-len(codes):]
+    for code, w in zip(codes, widths):
+        if n < 1 << (8 * w):
+            out.append(code)
+            out += n.to_bytes(w, "big")
+            return
+    raise ValueError(f"msgpack length {n} too large")
+
+
+def _pack(obj: Any, out: bytearray) -> None:
+    if isinstance(obj, np.ndarray):
+        payload = _ndarray_to_bytes(obj)
+        n = len(payload)
+        if n in (1, 2, 4, 8, 16):
+            out.append(0xD4 + n.bit_length() - 1)  # fixext 1/2/4/8/16
+        else:
+            _head(out, n, None, 0, (0xC7, 0xC8, 0xC9))  # ext 8/16/32
+        out.append(_EXT_NDARRAY)
+        out += payload
+    elif isinstance(obj, dict):
+        _head(out, len(obj), 0x80, 15, (0xDE, 0xDF))
+        for k, v in obj.items():
+            if not isinstance(k, str):
+                raise TypeError(f"map keys must be str, got {k!r}")
+            _pack(k, out)
+            _pack(v, out)
+    elif isinstance(obj, (list, tuple)):
+        _head(out, len(obj), 0x90, 15, (0xDC, 0xDD))
+        for v in obj:
+            _pack(v, out)
+    elif isinstance(obj, str):
+        b = obj.encode("utf-8")
+        _head(out, len(b), 0xA0, 31, (0xD9, 0xDA, 0xDB))
+        out += b
+    elif isinstance(obj, bytes):
+        _head(out, len(obj), None, 0, (0xC4, 0xC5, 0xC6))
+        out += obj
+    elif isinstance(obj, int) and not isinstance(obj, bool) and obj >= 0:
+        if obj <= 0x7F:
+            out.append(obj)
+        else:
+            for code, w in ((0xCC, 1), (0xCD, 2), (0xCE, 4), (0xCF, 8)):
+                if obj < 1 << (8 * w):
+                    out.append(code)
+                    out += obj.to_bytes(w, "big")
+                    return
+            raise ValueError(f"integer {obj} too large for msgpack")
+    else:
+        raise TypeError(f"cannot pack {type(obj).__name__} into a "
+                        "parameter file")
+
+
+def packb(obj: Any) -> bytes:
+    """Encode maps (str keys), arrays, str, bytes, non-negative ints and
+    numpy arrays (Flax's ndarray ext type), as ``msgpack.packb`` with
+    ``use_bin_type=True`` does."""
+    out = bytearray()
+    _pack(obj, out)
+    return bytes(out)
+
+
+def _ndarray_to_bytes(arr: np.ndarray) -> bytes:
+    if arr.dtype.hasobject or arr.dtype.isalignedstruct:
+        raise ValueError(f"cannot serialize a {arr.dtype} array")
+    return packb([list(arr.shape), arr.dtype.name, arr.tobytes("C")])
+
+
+def to_bytes(tree: dict) -> bytes:
+    """Counterpart of ``flax.serialization.to_bytes`` for a nested dict of
+    numpy arrays below Flax's 1 GiB chunking size."""
+    if not isinstance(tree, dict):
+        raise TypeError("a parameter tree is a dict")
+    return packb(tree)

@@ -1,14 +1,15 @@
-"""JAX/Flax parameter trees -> the port's ``state_dict``.
+"""JAX/Flax parameter trees <-> the port's ``state_dict``.
 
 The port's modules carry the Flax module names and the JAX parameter
 layouts (``ops/conv.py``), so a tree converts by flattening its nested
 dict with ``.`` separators. The one layout that differs is ``nn.Dense``:
 Flax's ``kernel`` ``[in, out]`` becomes ``nn.Linear``'s ``weight``
 ``[out, in]``. The input is a nested dict of numpy arrays, as
-``_msgpack.restore`` or ``jax.tree.map(np.asarray, params)`` gives it.
+``_msgpack.restore`` or ``jax.tree.map(np.asarray, params)`` gives it;
+``from_state_dict`` is the inverse, for writing Flax files.
 
-``train_state_from_jax`` carries a whole stage-2 training state across:
-parameters, optax's Adam moments and count, the EMA and the step.
+``train_state_from_jax`` carries a whole training state of either stage
+across: parameters, optax's Adam moments and count, the EMA and the step.
 """
 
 from __future__ import annotations
@@ -18,7 +19,8 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-__all__ = ["flatten_params", "to_state_dict", "train_state_from_jax"]
+__all__ = ["flatten_params", "to_state_dict", "from_state_dict",
+           "train_state_from_jax"]
 
 
 def flatten_params(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
@@ -46,6 +48,24 @@ def to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         else:
             raise ValueError(f"unexpected parameter {key!r}")
     return sd
+
+
+def from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
+    """The inverse of :func:`to_state_dict`: the nested Flax tree of fp32
+    numpy arrays, in ``sd``'s order."""
+    tree: dict[str, Any] = {}
+    for key, t in sd.items():
+        arr = t.detach().to("cpu", torch.float32).numpy()
+        *path, leaf = key.split(".")
+        if leaf == "weight":  # nn.Linear -> nn.Dense
+            leaf, arr = "kernel", arr.T
+        elif leaf not in ("bias", "v", "g", "b"):
+            raise ValueError(f"unexpected parameter {key!r}")
+        node = tree
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = np.ascontiguousarray(arr)
+    return tree
 
 
 def _adam_state(opt_state):
@@ -80,8 +100,8 @@ def _adam_state(opt_state):
 
 def train_state_from_jax(jax_state, device: str | torch.device | None = None,
                          seed: int | None = None):
-    """The JAX package's stage-2 ``GANState`` -> the port's ``GANState``,
-    on ``cuda`` unless ``device`` says otherwise.
+    """The JAX package's ``GANState`` (stage 1 or stage 2) -> the port's
+    ``GANState``, on ``cuda`` unless ``device`` says otherwise.
 
     ``jax_state`` is read by attribute (``step``, ``g_params``,
     ``d_params``, ``g_opt``, ``d_opt``, ``g_ema``, ``rng``) with numpy

@@ -1,10 +1,14 @@
-"""Stage-1 spectrogram generator, the "composer" (counterpart of
-``models/specgan.py::SpectrogramGenerator``; its critic comes with the
-training slice).
+"""Stage-1 spectrogram GAN, the "composer" (counterpart of
+``models/specgan.py``).
 
-z ``[B, latent_dim]`` -> normalized log-mel ``[B, n_frames, n_mels]`` in
-[-1, 1]. Flax's ``nn.Dense`` kernel ``[Z, F]`` is ``nn.Linear``'s weight
-``[F, Z]`` transposed; ``convert.py`` does that.
+``SpectrogramGenerator``: z ``[B, latent_dim]`` -> normalized log-mel
+``[B, n_frames, n_mels]`` in [-1, 1]. Flax's ``nn.Dense`` kernel ``[Z, F]``
+is ``nn.Linear``'s weight ``[F, Z]`` transposed; ``convert.py`` does that.
+
+``SpectrogramDiscriminator``: normalized log-mel ``[B, T, M]`` -> (logit
+``[B, 1, T']`` in fp32, features ``[B, C, T_i]`` after each strided layer).
+The JAX module returns the same values channel-last (``[B, T', 1]``,
+``[B, T_i, C]``).
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ from music_synthesis_tpu_torch.config import SpecGANConfig
 from music_synthesis_tpu_torch.models.vocoder import ResidualStack
 from music_synthesis_tpu_torch.ops.conv import WNConv, WNConvTranspose1d
 
-__all__ = ["SpectrogramGenerator"]
+__all__ = ["SpectrogramGenerator", "SpectrogramDiscriminator"]
 
 
 class SpectrogramGenerator(nn.Module):
@@ -65,3 +69,32 @@ class SpectrogramGenerator(nn.Module):
             x = getattr(self, f"res_{i}")(x)
         x = self.conv_out(F.leaky_relu(x, cfg.leaky_slope))
         return torch.tanh(cfg.out_temperature * x.float()).transpose(1, 2)
+
+
+class SpectrogramDiscriminator(nn.Module):
+    """Strided ``"same"``-padded convolutions over frames (the mel bins are
+    the input channels), each followed by a leaky ReLU and tapped for
+    feature matching, then a 3-tap ``conv_out`` to one logit channel."""
+
+    def __init__(self, cfg: SpecGANConfig = SpecGANConfig(),
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.slope = cfg.leaky_slope
+        common = dict(use_weight_norm=cfg.use_weight_norm,
+                      compute_dtype=cfg.compute_dtype,
+                      init_scheme=cfg.init_scheme, generator=generator)
+        self.n_down = len(cfg.disc_channels)
+        cin = cfg.n_mels
+        for i, (ch, s) in enumerate(zip(cfg.disc_channels, cfg.disc_strides)):
+            self.add_module(f"down_{i}", WNConv(cin, ch, cfg.disc_kernel,
+                                                stride=s, **common))
+            cin = ch
+        self.conv_out = WNConv(cin, 1, 3, **common)
+
+    def forward(self, mel: torch.Tensor):
+        x = mel.transpose(1, 2)  # [B, M, T]
+        feats = []
+        for i in range(self.n_down):
+            x = F.leaky_relu(getattr(self, f"down_{i}")(x), self.slope)
+            feats.append(x)
+        return self.conv_out(x).float(), feats

@@ -1,0 +1,231 @@
+"""Stage-1 spectrogram GAN training (counterpart of ``train/stage1.py``).
+
+``train_step`` takes one D update on normalized log-mel patches ``[B, T, M]``
+against the detached fake (hinge or logistic loss, optional R1 penalty and
+instance noise), then one G update against the *updated* D (adversarial,
+feature-matching and optional temporal-flux terms), then the EMA of G. It
+returns a new ``GANState`` and the metrics of the JAX step, under the same
+keys, as Python floats.
+
+The structure is ``train/stage2.py``'s: eager PyTorch, modules without
+storage called with the state's parameters (``functional_call``), one
+``torch.autograd.grad`` per player, one G forward for both updates. Each
+step draws the latents, then (with instance noise) three normals, from the
+state's generator; ``z=`` and ``noise=`` replace those draws.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import torch
+from torch.func import functional_call
+
+from music_synthesis_tpu_torch._device import resolve_device
+from music_synthesis_tpu_torch.config import PipelineConfig
+from music_synthesis_tpu_torch.losses.gan import (
+    d_loss_fn,
+    feature_matching_loss,
+    g_loss_fn,
+    hinge_d_loss,
+    hinge_g_loss,
+)
+from music_synthesis_tpu_torch.models.specgan import (
+    SpectrogramDiscriminator,
+    SpectrogramGenerator,
+)
+from music_synthesis_tpu_torch.train.stage2 import (
+    _copy_generator,
+    _floats,
+    noise_scale,
+)
+from music_synthesis_tpu_torch.train.state import (
+    GANState,
+    global_norm,
+    make_optimizer,
+)
+
+__all__ = ["make_models", "make_train_state", "draw_latents",
+           "forward_and_loss", "train_step"]
+
+
+def make_models(cfg: PipelineConfig,
+                generator: torch.Generator | None = None):
+    """The composer G and its spectrogram D of ``cfg.specgan``."""
+    return (SpectrogramGenerator(cfg.specgan, generator),
+            SpectrogramDiscriminator(cfg.specgan, generator))
+
+
+@functools.lru_cache(maxsize=8)
+def _modules(cfg: PipelineConfig):
+    """G and D without storage, called with the state's parameters."""
+    with torch.device("meta"):
+        return make_models(cfg)
+
+
+def make_train_state(cfg: PipelineConfig, seed: int | None = None,
+                     device: str | torch.device | None = None) -> GANState:
+    """Seeded G and D parameters, zeroed Adam states, step 0, on ``device``
+    (``cuda`` unless told otherwise). ``seed`` defaults to
+    ``cfg.train.seed``; the latent and noise generator is seeded with
+    ``seed + 1``."""
+    dev = resolve_device(device)
+    seed = cfg.train.seed if seed is None else seed
+    gen, disc = make_models(cfg, torch.Generator().manual_seed(seed))
+    g_params = {k: v.detach().to(dev) for k, v in gen.named_parameters()}
+    d_params = {k: v.detach().to(dev) for k, v in disc.named_parameters()}
+    t = cfg.train
+    return GANState(
+        step=0, g_params=g_params, d_params=d_params,
+        g_opt=make_optimizer(t.g_lr, t).init(g_params),
+        d_opt=make_optimizer(t.d_lr, t).init(d_params),
+        rng=torch.Generator(device=dev).manual_seed(seed + 1),
+        g_ema=({k: v.clone() for k, v in g_params.items()}
+               if t.ema_decay > 0 else None))
+
+
+def draw_latents(rng: torch.Generator, n: int,
+                 cfg: PipelineConfig) -> torch.Tensor:
+    """``z [n, latent_dim]`` (fp32) drawn from ``rng`` on its device."""
+    return torch.randn((n, cfg.specgan.latent_dim), generator=rng,
+                       device=rng.device)
+
+
+def _device(state: GANState) -> torch.device:
+    return next(iter(state.g_params.values())).device
+
+
+def forward_and_loss(cfg: PipelineConfig, state: GANState, real_mel,
+                     z) -> dict[str, float]:
+    """G forward and the hinge losses on ``real_mel`` and ``G(z)``, with no
+    update."""
+    gen, disc = _modules(cfg)
+    dev = _device(state)
+    with torch.no_grad():
+        real = torch.as_tensor(real_mel, dtype=torch.float32, device=dev)
+        z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+        fake = functional_call(gen, state.g_params, (z,))
+        real_logit, _ = functional_call(disc, state.d_params, (real,))
+        fake_logit, _ = functional_call(disc, state.d_params, (fake,))
+        return _floats({"d_loss": hinge_d_loss(real_logit, fake_logit),
+                        "g_loss": hinge_g_loss(fake_logit)})
+
+
+def _flux_profile(x: torch.Tensor) -> torch.Tensor:
+    """Mean absolute frame-to-frame change per mel bin, ``[M]``."""
+    return torch.mean(torch.abs(torch.diff(x, dim=1)), dim=(0, 1))
+
+
+def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise):
+    """One D and one G update; the metrics stay tensors on the device."""
+    t = cfg.train
+    gen, disc = _modules(cfg)
+    g_tx, d_tx = make_optimizer(t.g_lr, t), make_optimizer(t.d_lr, t)
+    dev = _device(state)
+    real = torch.as_tensor(real_mel, dtype=torch.float32, device=dev)
+
+    rng = _copy_generator(state.rng)
+    if z is None:
+        z = draw_latents(rng, real.shape[0], cfg)
+    z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    g_names = list(state.g_params)
+    g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
+    fake = functional_call(gen, dict(zip(g_names, g_leaves)), (z,))
+    fake_sg = fake.detach()
+
+    # Instance noise: three normals; the third is added (with gradients)
+    # to the G step's fake, a fresh realisation, not the D step's.
+    d_real_in, d_fake_in, g_noise = real, fake_sg, None
+    if t.d_input_noise > 0:
+        if noise is None:
+            noise = [torch.randn(real.shape, generator=rng, device=dev)
+                     for _ in range(3)]
+        n1, n2, n3 = (torch.as_tensor(n, dtype=torch.float32, device=dev)
+                      for n in noise)
+        s = noise_scale(cfg, state.step)
+        d_real_in, d_fake_in, g_noise = real + s * n1, fake_sg + s * n2, s * n3
+
+    # --- D step, on the detached fake ---
+    d_names = list(state.d_params)
+    d_leaves = [p.detach().requires_grad_() for p in state.d_params.values()]
+    d_in = dict(zip(d_names, d_leaves))
+    real_logit, real_feats = functional_call(disc, d_in, (d_real_in,))
+    fake_logit, _ = functional_call(disc, d_in, (d_fake_in,))
+    d_loss = d_loss_fn(t.gan_loss)(real_logit, fake_logit)
+    metrics = {}
+    if t.r1_gamma > 0:
+        # R1 on D(noised real): the input gradient of the summed logits,
+        # kept in the graph so D's gradient flows through it.
+        x = d_real_in.detach().requires_grad_()
+        logit, _ = functional_call(disc, d_in, (x,))
+        (gx,) = torch.autograd.grad(logit.float().sum(), x, create_graph=True)
+        per_sample = gx.float().square().sum(dim=tuple(range(1, gx.ndim)))
+        r1 = 0.5 * t.r1_gamma * per_sample.mean()
+        d_loss = d_loss + r1
+        metrics["d_r1"] = r1.detach()
+    d_grads = list(torch.autograd.grad(d_loss, d_leaves))
+    d_grad_norm = global_norm(d_grads)
+    d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)), state.d_opt)
+    d_update_norm = global_norm(d_updates)
+    d_params = dict(zip(d_names, torch._foreach_add(
+        list(state.d_params.values()), d_updates)))
+
+    # --- G step, against the updated D (which takes no gradient) ---
+    fake_g_in = fake if g_noise is None else fake + g_noise
+    fake_logit_g, fake_feats = functional_call(disc, d_params, (fake_g_in,))
+    if t.reuse_real_features and t.d_input_noise == 0:
+        real_feats_g = [f.detach() for f in real_feats]
+    else:
+        # The FM target is D's taps of the clean real batch (with noise
+        # on, the D step's taps saw the noised one).
+        with torch.no_grad():
+            _, real_feats_g = functional_call(disc, d_params, (real,))
+    adv = g_loss_fn(t.gan_loss)(fake_logit_g)
+    fm = feature_matching_loss(real_feats_g, fake_feats)
+    total = adv + t.lambda_feature_matching * fm
+    aux = {"g_adv": adv, "g_fm": fm}
+    if t.lambda_flux > 0:
+        flux = torch.mean(torch.abs(_flux_profile(fake)
+                                    - _flux_profile(real)))
+        total = total + t.lambda_flux * flux
+        aux["g_flux"] = flux
+    g_grads = list(torch.autograd.grad(total, g_leaves))
+    g_grad_norm = global_norm(g_grads)
+    g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)), state.g_opt)
+    g_update_norm = global_norm(g_updates)
+    g_params = dict(zip(g_names, torch._foreach_add(
+        list(state.g_params.values()), g_updates)))
+
+    g_ema = state.g_ema
+    if t.ema_decay > 0:
+        ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
+                                 t.ema_decay)
+        torch._foreach_add_(ema, torch._foreach_mul(
+            list(g_params.values()), 1.0 - t.ema_decay))
+        g_ema = dict(zip(g_names, ema))
+
+    new_state = GANState(step=state.step + 1, g_params=g_params,
+                         d_params=d_params, g_opt=g_opt, d_opt=d_opt,
+                         rng=rng, g_ema=g_ema)
+    # Amplitude health in the normalized mel space, on the D step's fake.
+    rms_ratio = torch.sqrt((torch.mean(torch.square(fake_sg)) + 1e-12)
+                           / (torch.mean(torch.square(real)) + 1e-12))
+    out = {"d_loss": d_loss.detach(), "g_loss": total.detach(),
+           "g_rms_ratio": rms_ratio,
+           **{k: v.detach() for k, v in aux.items()}, **metrics,
+           "d_grad_norm": d_grad_norm, "g_grad_norm": g_grad_norm,
+           "d_update_norm": d_update_norm, "g_update_norm": g_update_norm}
+    return new_state, out
+
+
+def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
+               noise=None) -> tuple[GANState, dict[str, float]]:
+    """One alternating D/G update on normalized log-mel ``[B, T, M]``.
+
+    ``z``: the latents ``[B, latent_dim]``, in place of a draw from
+    ``state.rng``. ``noise``: the three standard-normal ``[B, T, M]``
+    instance-noise realisations, in place of draws from ``state.rng``;
+    used only when ``cfg.train.d_input_noise > 0``.
+    """
+    new_state, metrics = _step(cfg, state, real_mel, z, noise)
+    return new_state, _floats(metrics)

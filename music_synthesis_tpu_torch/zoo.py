@@ -1,9 +1,11 @@
-"""Pretrained model zoo reader (counterpart of ``zoo.py``).
+"""Pretrained model zoo (counterpart of ``zoo.py``).
 
-Reads the committed entries ``zoo/<name>/{card.json, params.msgpack}``
-written by the JAX package: the card rebuilds the exact model config,
-front-end and MelScaler; the Flax msgpack weights are read by
-``_msgpack.py`` and converted by ``convert.py``.
+Each entry is a directory ``zoo/<name>/{card.json, params.msgpack}``: the
+card rebuilds the exact model config, front-end and MelScaler; the weights
+are a Flax msgpack tree, read and written by ``_msgpack.py`` and converted
+by ``convert.py``. The JAX package's ``zoo.load_pretrained`` reads what
+``save_pretrained`` writes, and ``load_pretrained`` reads the JAX
+package's entries.
 
     entry = load_pretrained("vocoder_istft")
     vocoder = entry.model(device="cuda")
@@ -27,9 +29,10 @@ from music_synthesis_tpu_torch.config import (
     VocoderConfig,
     section_from_dict,
 )
-from music_synthesis_tpu_torch.convert import to_state_dict
+from music_synthesis_tpu_torch.convert import from_state_dict, to_state_dict
 
-__all__ = ["ZOO_ROOT", "PretrainedEntry", "load_pretrained", "list_pretrained"]
+__all__ = ["ZOO_ROOT", "PretrainedEntry", "save_pretrained", "load_pretrained",
+           "list_pretrained"]
 
 ZOO_ROOT = Path(__file__).resolve().parents[1] / "zoo"
 
@@ -60,6 +63,37 @@ class PretrainedEntry:
         module = cls(cfg)
         module.load_state_dict(self.state_dict, strict=True)
         return module.to(device).eval().requires_grad_(False)
+
+
+def save_pretrained(name: str, kind: str, params: dict[str, torch.Tensor],
+                    model_config: Any, *,
+                    frontend: FrontendConfig | None = None,
+                    mel_scaler: MelScaler | None = None,
+                    metrics: dict | None = None, notes: str = "",
+                    root: Path | str = ZOO_ROOT) -> Path:
+    """Write a zoo entry under ``root``: ``params`` (a ``state_dict`` of the
+    kind's module) as an fp32 Flax msgpack tree, and the JSON card."""
+    if kind not in _KIND_TO_CONFIG:
+        raise ValueError(f"kind must be one of {sorted(_KIND_TO_CONFIG)}")
+    expected = _KIND_TO_CONFIG[kind]
+    if not isinstance(model_config, expected):
+        raise TypeError(f"model_config for kind={kind!r} must be "
+                        f"{expected.__name__}, got {type(model_config).__name__}")
+    out = Path(root) / name
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "params.msgpack").write_bytes(
+        _msgpack.to_bytes(from_state_dict(params)))
+
+    def asdict(c):
+        return dataclasses.asdict(c) if c is not None else None
+
+    card = {"name": name, "kind": kind,
+            "n_params": sum(int(t.numel()) for t in params.values()),
+            "config": asdict(model_config), "frontend": asdict(frontend),
+            "mel_scaler": asdict(mel_scaler), "metrics": metrics or {},
+            "notes": notes}
+    (out / "card.json").write_text(json.dumps(card, indent=1))
+    return out
 
 
 def load_pretrained(name: str, root: Path | str = ZOO_ROOT) -> PretrainedEntry:

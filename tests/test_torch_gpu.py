@@ -17,7 +17,10 @@ are well away from 0 and whose Adam second moment is 1 (so that the
 update the G step runs against is continuous in the gradient), card
 (fp32, TF32 off, the "exact" kernel) against the CPU, 5e-5 relative on
 the losses and 3e-4 on the gradient norms, as ``chip_smoke.py``'s
-``TRAIN_TOL``, which the same step with TF32 on must fail.
+``TRAIN_TOL``, which the same step with TF32 on must fail; for one TINY
+stage-1 step from the same kind of state, 1e-6 relative on the losses and
+1e-4 on the gradient norms, as ``chip_smoke.py``'s ``STAGE1_TOL``, which the
+same step with TF32 on must fail.
 """
 
 import numpy as np
@@ -144,8 +147,8 @@ def _he_gain_d(d_params, seed, out_gain):
     out = {}
     for k, v in d_params.items():
         r = torch.randn(v.shape, generator=gen).to(v.device)
-        gain = (out_gain[k.split(".")[0]] if k.endswith(".conv_out.g")
-                else 2 ** 0.5)
+        names = k.split(".")
+        gain = (out_gain[names[0]] if names[-2] == "conv_out" else 2 ** 0.5)
         out[k] = (gain * (1.0 + 0.3 * r) if k.endswith(".g")
                   else 0.05 * r if k.endswith(".b") else v)
     return out
@@ -202,3 +205,55 @@ def test_tiny_train_step_on_the_card_matches_cpu(cuda):
     _, m_tf32 = card_step(True)
     assert any(abs(m_tf32[k] - m_cpu[k]) > rtol * abs(m_cpu[k])
                for k, rtol in tol.items()), m_tf32
+
+
+def test_tiny_stage1_step_on_the_card_matches_cpu(cuda):
+    import dataclasses
+
+    from music_synthesis_tpu_torch.config import TINY
+    from music_synthesis_tpu_torch.train import stage1
+
+    cfg = dataclasses.replace(TINY, train=dataclasses.replace(
+        TINY.train, d_input_noise=0.2, d_noise_decay_steps=10000,
+        r1_gamma=1.0, lambda_flux=10.0, ema_decay=0.999))
+    rng = np.random.default_rng(5)
+    mel = (0.8 * np.tanh(rng.standard_normal((2, 32, 32)))).astype(np.float32)
+    z = rng.standard_normal((2, 16)).astype(np.float32)
+    noise = [rng.standard_normal(mel.shape).astype(np.float32)
+             for _ in range(3)]
+
+    def state(device):
+        st = stage1.make_train_state(cfg, seed=0, device=device)
+        d_opt = dataclasses.replace(st.d_opt, nu={
+            k: torch.ones_like(v) for k, v in st.d_opt.nu.items()})
+        return dataclasses.replace(st, d_params=_he_gain_d(
+            st.d_params, 4, {"conv_out": 0.5}), d_opt=d_opt)
+
+    def card_step(tf32):
+        matmul = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=tf32):
+                return stage1.train_step(cfg, state(cuda), mel, z=z,
+                                         noise=noise)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = matmul
+
+    before = L.logmel_kernel.n_launches
+    new, m_gpu = card_step(False)
+    assert L.logmel_kernel.n_launches == before  # stage 1 runs no kernel
+    assert new.step == 1 and new.d_params["conv_out.v"].is_cuda
+    _, m_cpu = stage1.train_step(cfg, state("cpu"), mel, z=z, noise=noise)
+    assert m_gpu.keys() == m_cpu.keys()
+    assert abs(m_cpu["g_adv"]) > 1e-2, m_cpu  # D's logits away from 0
+    tol = {k: 1e-6 for k in ("d_loss", "g_loss", "g_rms_ratio", "g_adv",
+                             "g_fm", "g_flux", "d_r1")}
+    tol.update(d_grad_norm=1e-4, g_grad_norm=1e-4)
+    rel = {k: abs(m_gpu[k] - m_cpu[k]) / abs(m_cpu[k]) for k in tol}
+    print("stage-1 TINY card vs CPU, TF32 off:", rel)
+    for k, rtol in tol.items():
+        assert rel[k] <= rtol, (k, m_gpu[k], m_cpu[k], rel[k])
+    _, m_tf32 = card_step(True)
+    rel = {k: abs(m_tf32[k] - m_cpu[k]) / abs(m_cpu[k]) for k in tol}
+    print("stage-1 TINY card vs CPU, TF32 on:", rel)
+    assert any(rel[k] > rtol for k, rtol in tol.items()), m_tf32
