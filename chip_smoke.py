@@ -11,12 +11,14 @@ at the flagship's full width with the committed zoo weights, in phases:
 1. build: ``csrc/logmel.cu`` with nvcc; prints the build seconds, ptxas'
    register and spill lines, and the card's name and power limit;
 2. kernel vs plain: the log-mel kernel against its plain PyTorch version at
-   [16, 8192], [16, 88064], [4, 88064] and [1, 8192] (every shape the main
-   path gives it, and the 4 s batch of 16), both precision modes (the 3xTF32
-   tensor-core path for "fast", the fp32 FFMA path for "exact"), the
+   [16, 8192], [16, 88064], [4, 88064], [1, 8192] and [1, 88064] (every
+   shape the main path gives it, and the 4 s batch of 16), both precision
+   modes (the 3xTF32 tensor-core path for "fast", the fp32 FFMA path for
+   "exact"), the
    vocoder and plain variants, power 2 and 1, and 160 mels at [16, 8192]
-   ([1, 8192], the stage-2 CLI's audio dump, in the vocoder variant);
-   max abs error <= 2e-4 ("exact"), <= 2e-2 ("fast"); the times of both
+   ([1, 8192], the stage-2 CLI's audio dump, and [1, 88064], one 4 s eval
+   clip, in the vocoder variant); max abs error against the plain version
+   evaluated in float64 <= 2e-4 ("exact"), <= 2e-2 ("fast"); the times of both
    paths and of the plain version (median of 21 CUDA-event samples of 10
    back-to-back calls, after warm-up) beside two bounds: fp32 FFMA, and
    three TF32 tensor-core passes (the one in the ``kernels`` line); and
@@ -68,15 +70,45 @@ at the flagship's full width with the committed zoo weights, in phases:
    the resumed run must start at the checkpoint's step, and the audio must
    be finite and of the requested length; each CLI's ``loop:`` line is
    printed beside the card's name and power limit;
-9. the ``kernels`` JSON line.
+9. the HTTP server (main path) at the flagships' full width
+   (``specgan_flux`` + ``vocoder_istft``, fp32, warmed with the stream):
+   ``serve.make_server`` on 127.0.0.1, port 0, in a thread of this
+   process; ``GET /healthz``, ``/models``, ``/metrics``; ``POST /generate``
+   (4 s x 1, 8 s x 4), whose bytes must equal ``wav_bytes`` of the
+   in-process ``synth`` for the same seed, and its latency over HTTP against
+   in process; ``POST /stream`` of 8 s, exactly ``44 + 2 * samples`` bytes
+   with the time to its first PCM block, and (a second stream, cuDNN TF32
+   off) decoding to the raw ``_execute`` audio of the same seed and patch
+   count (``FP32_TOL`` plus one 16-bit step); a service with ``coalesce_window_ms=20``
+   answering 4 requests from 4 threads in fewer device calls, each clip its
+   solo audio (``FP32_TOL``, TF32 off); a ``gl_refine=8`` service on one
+   4 s request (finite, not the unrefined audio, timed); ``POST /reload`` to
+   a missing entry (400, the old service answers the same bytes), then onto
+   the pair phase 8 exported, by directory (200; the next ``/generate`` is
+   the new pair's), with the card's peak memory across the reload; and
+   ``/metrics``' p50/p95;
+10. evaluation and the inference CLIs (main path), in process:
+   ``make_corpus`` (256 x 30 s, seed 0) into a temporary directory;
+   ``eval_checkpoint --zoo vocoder_istft --head istft --gl-anchor
+   --gl-refine 8`` on it, each clip's ``dist``, ``jitter``, ``mcd_db``,
+   ``rms_ratio`` and ``gl_dist`` held to the JAX package's own eval of the
+   same corpus on a CPU (``EVAL_JAX_CPU``, ``EVAL_TOL``) and printed beside
+   the TPU values in ``zoo/vocoder_istft/card.json``; ``eval_checkpoint
+   --run`` on phase 8's stage-2 run and corpus, one log-mel launch per
+   clip; ``vocode`` (neural and ``--griffin-lim``) on a corpus clip; and
+   ``generate`` from the zoo pair (``--seconds 8 --gl-refine 8``, and with
+   ``--interpolate``, ``--walk-step`` and ``--report``): files written,
+   audio finite;
+11. the ``kernels`` JSON line.
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
-and again around each of phases 6, 7 and 8.
+and again around each of phases 6, 7, 8, 9 and 10 (and around phase 10's
+``eval_checkpoint --run``).
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
-Needs a CUDA card; exits non-zero without one. Starts no server and no
-process other than nvcc and nvidia-smi; the CLIs' batch-prefetch threads
-end with each CLI.
+Needs a CUDA card; exits non-zero without one. Starts no process other than
+nvcc and nvidia-smi; phase 9's server and coalescer threads are shut down
+before it ends, and the CLIs' batch-prefetch threads end with each CLI.
 """
 
 from __future__ import annotations
@@ -90,6 +122,7 @@ import json
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -151,6 +184,52 @@ STAGE1_TOL = {"loss": 1e-6, "grad_norm": 1e-4}
 STAGE1_D_OUT_GAIN = 0.5
 STAGE1_LOSSES = ("d_loss", "g_loss", "g_rms_ratio", "g_adv", "g_fm", "g_flux",
                  "d_r1")
+
+# Phase 9: audio that two fp32 paths compute on the card with cuDNN's TF32
+# off (the stream against generate_long, coalesced clips against solo ones:
+# other batch sizes, so other cuDNN algorithms), max abs difference: the
+# card-vs-CPU fp32 gate of phase 5.
+FP32_TOL = 2e-3
+
+# Phase 10: the JAX package's own copy-synthesis eval of the zoo flagship
+# (its vocoder in the card's bf16, as here) on the regenerated rich corpus,
+# on an x86-64 CPU (jax 0.9.0, numpy 2.0.2; eval.json's per_clip):
+#   python scripts/make_corpus.py --out C --clips 256 --seconds 30 --seed 0
+#   JAX_PLATFORMS=cpu python scripts/eval_checkpoint.py --zoo vocoder_istft \
+#       --corpus C --head istft --gl-anchor --gl-refine 8
+EVAL_JAX_CPU = {
+    "dist": [1.5284101963043213, 1.2366943359375, 1.5259073972702026,
+        1.110978126525879, 1.1843135356903076, 1.2159274816513062,
+        1.194472074508667, 1.130416989326477],
+    "jitter": [1.2368292808532715, 1.3526853322982788, 3.087221622467041,
+        1.479310154914856, 1.4204399585723877, 1.9051101207733154,
+        1.1029548645019531, 1.4853744506835938],
+    "mcd_db": [75.4854507446289, 50.08938980102539, 58.08373260498047,
+        44.11587142944336, 45.49138641357422, 39.875144958496094,
+        50.55168533325195, 47.758270263671875],
+    "rms_ratio": [0.8434630036354065, 0.8791916966438293, 0.5744284987449646,
+        0.8754728436470032, 0.8477376103401184, 0.8524762988090515,
+        0.9220963716506958, 0.889865517616272],
+    "gl_dist": [2.1055686473846436, 1.7996124029159546, 1.9912450313568115,
+        1.5716705322265625, 1.5420222282409668, 1.3408966064453125,
+        1.4462575912475586, 1.1590943336486816],
+}
+# Tolerance per clip and metric (|card - EVAL_JAX_CPU|): the CPU's own max
+# gap over the 8 clips between the port's eval in bf16 and in fp32 on that
+# corpus (`python3 chip_smoke.py --cpu-gaps`, PyTorch 2.13.0+cpu) times 2,
+# as GAP_FACTOR["copy"]: the card's bf16 and the CPU's round at different
+# places. Griffin-Lim runs no bf16, so gl_dist's gap is the port's eval on
+# the CPU (`python -m music_synthesis_tpu_torch.scripts.eval_checkpoint
+# --device cpu`, same flags) against the JAX one, times 4: 48 iterations
+# turn the two packages' rounding into two phase trajectories, and the
+# card's cuFFT rounds differently again.
+EVAL_CPU_GAPS = {"dist": 0.09899640083312988, "jitter": 0.015469074249267578,
+                 "mcd_db": 1.4188690185546875,
+                 "rms_ratio": 0.0012016892433166504,
+                 "gl_dist": 0.002544999122619629}
+EVAL_GAP_FACTOR = {"dist": 2.0, "jitter": 2.0, "mcd_db": 2.0, "rms_ratio": 2.0,
+                   "gl_dist": 4.0}
+EVAL_TOL = {k: EVAL_GAP_FACTOR[k] * v for k, v in EVAL_CPU_GAPS.items()}
 
 
 def log(*parts) -> None:
@@ -288,30 +367,36 @@ def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
              for variant in ("for_vocoder", "log_mel")]
     cases.append(((16, 8192), 2.0, 160, "for_vocoder"))
     cases.append(((1, 8192), 2.0, 128, "for_vocoder"))  # stage-2 audio dumps
+    cases.append(((1, 88064), 2.0, 128, "for_vocoder"))  # one 4 s eval clip
     audio = {}
     for shape, power, n_mels, variant in cases:
         if shape not in audio:
             audio[shape] = torch.from_numpy(test_audio(rng, *shape, 22050)).cuda()
         wav = audio[shape]
         cfg = FrontendConfig(power=power, n_mels=n_mels)
-        fused, plain = ((L.fused_log_mel_for_vocoder, L.log_mel_for_vocoder_plain)
-                        if variant == "for_vocoder" else
-                        (L.fused_log_mel, L.log_mel_plain))
-        want = plain(wav, cfg)
+        fused = (L.fused_log_mel_for_vocoder if variant == "for_vocoder"
+                 else L.fused_log_mel)
+        # The plain version on the same padded input, in float64: the exact
+        # answer to the kernel's fp32 arithmetic. (In fp32 on the card its
+        # cuBLAS GEMM changes summation order with the batch: at [1, 88064]
+        # it is 2.4e-4 from the float64 answer, the kernel 8.5e-5.)
+        padded, n_frames = L.padded_input(wav, cfg, variant == "for_vocoder")
+        want = L.log_mel_frames_plain(padded.double(), cfg, n_frames)
+        plain_err = (L.log_mel_frames_plain(padded, cfg, n_frames).double()
+                     - want).abs().max().item()
         errs = {}
         for mode in ("exact", "fast"):
             got = fused(wav, cfg, mode)
             torch.cuda.synchronize()
             check(got.shape == want.shape, f"shape {got.shape} vs {want.shape}")
-            err = (got - want).abs().max().item()
+            err = (got.double() - want).abs().max().item()
             check(np.isfinite(err) and err <= TOL[mode],
                   f"log-mel kernel {shape} {variant} power={power} "
                   f"n_mels={n_mels} {mode}: max abs err {err} > {TOL[mode]}")
             worst[mode] = max(worst[mode], err)
             errs[mode] = err
-        # Time both kernel paths and the plain version on the same padded
-        # input (padding is outside all three).
-        padded, n_frames = L.padded_input(wav, cfg, variant == "for_vocoder")
+        # Time both kernel paths and the plain version (fp32) on the same
+        # padded input (padding is outside all three).
         ms = time_ms(lambda: L.logmel_kernel(padded, cfg, n_frames, "fast"))
         ms_exact = time_ms(lambda: L.logmel_kernel(padded, cfg, n_frames, "exact"))
         plain_ms = time_ms(lambda: L.log_mel_frames_plain(padded, cfg, n_frames))
@@ -326,12 +411,14 @@ def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
             log(f"[kernel]   fast by frame tile: " + ", ".join(
                 f"{t}: {v:.4f} ms" for t, v in tile_ms.items()))
         rows.append(dict(shape=list(shape), variant=variant, power=power,
-                         n_mels=n_mels, max_abs_err=errs, ms=ms,
+                         n_mels=n_mels, max_abs_err=errs,
+                         plain_fp32_err=plain_err, ms=ms,
                          ms_exact=ms_exact, plain_ms=plain_ms, **bound,
                          bound_share=bound["bound_ms"] / ms,
                          ffma_share=bound["ffma_ms"] / ms, tile_ms=tile_ms))
         log(f"[kernel] logmel {list(shape)} {variant} power={power:g} "
-            f"mels={n_mels}: err exact {errs['exact']:.3g} fast {errs['fast']:.3g}; "
+            f"mels={n_mels}: err exact {errs['exact']:.3g} fast {errs['fast']:.3g} "
+            f"(plain fp32 {plain_err:.3g}); "
             f"fast (3xTF32) {ms:.4f} ms, exact (FFMA) {ms_exact:.4f} ms, "
             f"plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
             f"(3xTF32, {bound['bound_by']}), share {bound['bound_ms'] / ms:.3f}; "
@@ -872,10 +959,12 @@ def run_cli(module, argv: list[str]) -> list[str]:
     return lines
 
 
-def phase_lifecycle() -> dict:
+def phase_lifecycle(tmp: Path) -> dict:
     """train_stage1 -> export_zoo -> train_stage2 (and --resume) ->
-    export_zoo -> SynthService, in a temporary directory (main path); the
-    caller zeroes the launch counts before and reads them after."""
+    export_zoo -> SynthService, in the directory ``tmp`` (main path); the
+    caller zeroes the launch counts before and reads them after. Returns
+    the paths of the exported zoo, the stage-2 run and its corpus too, for
+    phases 9 and 10."""
     from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
     from music_synthesis_tpu_torch.scripts import (export_zoo, train_stage1,
                                                    train_stage2)
@@ -883,60 +972,409 @@ def phase_lifecycle() -> dict:
 
     card = card_name_and_power()
     out = {"loop": {}}
-    with tempfile.TemporaryDirectory(prefix="lifecycle_") as tmp:
-        tmp = Path(tmp)
-        run1, run2, zoo_root = tmp / "stage1", tmp / "stage2", tmp / "zoo"
-        lines = run_cli(train_stage1, STAGE1_CLI_FLAGS + [
-            "--steps", "4", "--log-every", "2", "--ckpt-every", "4",
-            "--outdir", str(run1)])
-        out["loop"]["train_stage1"] = next(x for x in lines if x.startswith("loop:"))
-        check(logmel_kernel.n_launches == 0, "stage 1 launched the kernel")
-        corpus = run1 / "synthetic_corpus"
-        check(len(list(corpus.glob("*.wav"))) == 8, "the CLI's corpus")
-        run_cli(export_zoo, ["--run", str(run1), "--stage", "1", "--name",
-                             "composer", "--root", str(zoo_root)])
+    run1, run2, zoo_root = tmp / "stage1", tmp / "stage2", tmp / "zoo"
+    lines = run_cli(train_stage1, STAGE1_CLI_FLAGS + [
+        "--steps", "4", "--log-every", "2", "--ckpt-every", "4",
+        "--outdir", str(run1)])
+    out["loop"]["train_stage1"] = next(x for x in lines if x.startswith("loop:"))
+    check(logmel_kernel.n_launches == 0, "stage 1 launched the kernel")
+    corpus = run1 / "synthetic_corpus"
+    check(len(list(corpus.glob("*.wav"))) == 8, "the CLI's corpus")
+    run_cli(export_zoo, ["--run", str(run1), "--stage", "1", "--name",
+                         "composer", "--root", str(zoo_root)])
 
-        common = STAGE2_CLI_FLAGS + ["--corpus", str(corpus), "--log-every",
-                                     "2", "--ckpt-every", "2",
-                                     "--audio-every", "2", "--outdir", str(run2)]
-        first = run_cli(train_stage2, common + ["--steps", "2"])
-        resumed = run_cli(train_stage2, common + [
-            "--steps", "4", "--resume", "--steps-per-dispatch", "2"])
-        out["loop"]["train_stage2"] = next(x for x in first if x.startswith("loop:"))
-        out["loop"]["train_stage2_resumed"] = next(
-            x for x in resumed if x.startswith("loop:"))
-        check("resumed from step 2" in resumed,
-              "the resumed run did not start at the checkpoint's step")
-        logged = [json.loads(x)["step"] for x in
-                  (run2 / "metrics.jsonl").read_text().splitlines()]
-        check(logged == [1, 2, 4], f"stage-2 logged steps {logged}")
-        dumps = sorted(p.name for p in run2.glob("vocoded_*.wav"))
-        check(dumps == ["vocoded_0000002.wav", "vocoded_0000004.wav"],
-              f"audio dumps {dumps}")
-        stage2_launches = logmel_kernel.n_launches
-        check(stage2_launches == 4 + len(dumps),
-              f"{stage2_launches} log-mel launches for 4 stage-2 steps and "
-              f"{len(dumps)} audio dumps")
-        run_cli(export_zoo, ["--run", str(run2), "--stage", "2", "--name",
-                             "vocoder", "--root", str(zoo_root)])
+    common = STAGE2_CLI_FLAGS + ["--corpus", str(corpus), "--log-every",
+                                 "2", "--ckpt-every", "2",
+                                 "--audio-every", "2", "--outdir", str(run2)]
+    first = run_cli(train_stage2, common + ["--steps", "2"])
+    resumed = run_cli(train_stage2, common + [
+        "--steps", "4", "--resume", "--steps-per-dispatch", "2"])
+    out["loop"]["train_stage2"] = next(x for x in first if x.startswith("loop:"))
+    out["loop"]["train_stage2_resumed"] = next(
+        x for x in resumed if x.startswith("loop:"))
+    check("resumed from step 2" in resumed,
+          "the resumed run did not start at the checkpoint's step")
+    logged = [json.loads(x)["step"] for x in
+              (run2 / "metrics.jsonl").read_text().splitlines()]
+    check(logged == [1, 2, 4], f"stage-2 logged steps {logged}")
+    dumps = sorted(p.name for p in run2.glob("vocoded_*.wav"))
+    check(dumps == ["vocoded_0000002.wav", "vocoded_0000004.wav"],
+          f"audio dumps {dumps}")
+    stage2_launches = logmel_kernel.n_launches
+    check(stage2_launches == 4 + len(dumps),
+          f"{stage2_launches} log-mel launches for 4 stage-2 steps and "
+          f"{len(dumps)} audio dumps")
+    run_cli(export_zoo, ["--run", str(run2), "--stage", "2", "--name",
+                         "vocoder", "--root", str(zoo_root)])
 
-        svc = SynthService(ServeConfig(composer=str(zoo_root / "composer"),
-                                       vocoder=str(zoo_root / "vocoder")),
-                           warmup=False)
-        check(svc.device.type == "cuda", "service on the card")
-        wav, meta = svc.synth(4.0, seed=3)
-        n = svc.patches_for_seconds(4.0)
-        want = min(int(round(4.0 * svc.cfg.frontend.sample_rate)),
-                   svc.out_samples(n))
-        check(wav.shape == (1, want), f"served shape {wav.shape}")
-        check(bool(np.isfinite(wav).all()), "served audio not finite")
-        check(float(np.abs(wav).max()) > 0.0, "served audio is silent")
-        log(f"[lifecycle] served 4 s from the exported pair: {wav.shape[1]} "
-            f"samples, latency {meta['gen_ms']:.2f} ms")
+    svc = SynthService(ServeConfig(composer=str(zoo_root / "composer"),
+                                   vocoder=str(zoo_root / "vocoder")),
+                       warmup=False)
+    check(svc.device.type == "cuda", "service on the card")
+    wav, meta = svc.synth(4.0, seed=3)
+    n = svc.patches_for_seconds(4.0)
+    want = min(int(round(4.0 * svc.cfg.frontend.sample_rate)),
+               svc.out_samples(n))
+    check(wav.shape == (1, want), f"served shape {wav.shape}")
+    check(bool(np.isfinite(wav).all()), "served audio not finite")
+    check(float(np.abs(wav).max()) > 0.0, "served audio is silent")
+    log(f"[lifecycle] served 4 s from the exported pair: {wav.shape[1]} "
+        f"samples, latency {meta['gen_ms']:.2f} ms")
     for name, line in out["loop"].items():
         log(f"[lifecycle] {name} {line} on {card}")
     out.update(stage2_launches=stage2_launches, audio_dumps=len(dumps),
-               serve_latency_ms=meta["gen_ms"], card=card)
+               serve_latency_ms=meta["gen_ms"], card=card,
+               zoo_root=str(zoo_root), run2=str(run2), corpus=str(corpus))
+    return out
+
+
+def http_call(httpd, method: str, path: str, body: dict | None = None):
+    """One request to ``httpd`` (60 s timeout): ``(status, headers, body
+    bytes, seconds)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*httpd.server_address, timeout=60)
+    t0 = time.perf_counter()
+    try:
+        conn.request(method, path,
+                     body=None if body is None else json.dumps(body))
+        r = conn.getresponse()
+        data = r.read()
+        return r.status, r, data, time.perf_counter() - t0
+    finally:
+        conn.close()
+
+
+def decode_wav(data: bytes) -> np.ndarray:
+    import scipy.io.wavfile
+
+    return scipy.io.wavfile.read(io.BytesIO(data))[1].astype(np.float32) / 32767.0
+
+
+def http_stream(httpd, seconds: float, seed: int):
+    """POST /stream, read block by block: ``(status, meta, body bytes,
+    seconds to the first PCM bytes, seconds in all)``."""
+    import http.client
+
+    conn = http.client.HTTPConnection(*httpd.server_address, timeout=60)
+    t0 = time.perf_counter()
+    try:
+        conn.request("POST", "/stream",
+                     body=json.dumps({"seconds": seconds, "seed": seed}))
+        r = conn.getresponse()
+        header = r.read(44)
+        first = r.read1(1 << 16)
+        t_first = time.perf_counter() - t0
+        data = header + first + r.read()
+        return (r.status, json.loads(r.getheader("X-Msynth-Meta")), data,
+                t_first, time.perf_counter() - t0)
+    finally:
+        conn.close()
+
+
+def phase_http(lifecycle: dict) -> dict:
+    """The flagship pair served over HTTP (main path); the caller zeroes the
+    launch counts before and reads them after."""
+    from music_synthesis_tpu_torch.serve import (ServeConfig, SynthService,
+                                                 make_server, wav_bytes)
+
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    svc = SynthService(ServeConfig(composer="specgan_flux",
+                                   vocoder="vocoder_istft"))
+    out["warm_s"] = time.perf_counter() - t0
+    check(("stream", 1) in svc._warm, "warm_all did not warm the stream")
+    out["service_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"[http] service loaded and warmed {svc._warm} in {out['warm_s']:.2f} "
+        f"s, peak memory {out['service_peak_bytes']} B")
+    sr = svc.cfg.frontend.sample_rate
+    httpd = make_server(svc, host="127.0.0.1", port=0)
+    server = threading.Thread(target=httpd.serve_forever, daemon=True,
+                              name="chip-smoke-http")
+    server.start()
+    extra = []  # services to close
+    try:
+        for path in ("/healthz", "/models", "/metrics"):
+            status, _, data, _ = http_call(httpd, "GET", path)
+            check(status == 200, f"GET {path}: {status}")
+            out[path] = json.loads(data)
+        check(out["/healthz"]["device"].startswith("cuda/"),
+              f"health {out['/healthz']}")
+        check(out["/models"]["vocoder"]["name"] == "vocoder_istft", "models")
+        status, _, _, _ = http_call(httpd, "GET", "/nope")
+        check(status == 404, "unknown route")
+
+        # /generate: bytes equal to the in-process call's; latency over
+        # HTTP against in process (median of 5 after the first).
+        out["generate"] = {}
+        for seconds, seed, n_clips in ((4.0, 3, 1), (8.0, 5, 4)):
+            body = {"seconds": seconds, "seed": seed, "n_clips": n_clips}
+            http_s, server_ms, proc_ms = [], [], []
+            for _ in range(6):
+                status, r, data, dt = http_call(httpd, "POST", "/generate", body)
+                check(status == 200, f"POST /generate {body}: {status}")
+                http_s.append(dt)
+                server_ms.append(json.loads(r.getheader("X-Msynth-Meta"))
+                                 ["gen_ms"])
+                wav, meta = svc.synth(seconds, seed=seed, n_clips=n_clips)
+                proc_ms.append(meta["gen_ms"])
+            check(data == wav_bytes(sr, wav),
+                  f"/generate {body} is not the in-process audio")
+            want = min(int(round(seconds * sr)),
+                       svc.out_samples(svc.patches_for_seconds(seconds)))
+            check(len(data) == 44 + 2 * n_clips * want, "WAV length")
+            check(bool(np.isfinite(wav).all()), "served audio not finite")
+            key = f"{seconds:g}s_x{n_clips}"
+            g = out["generate"][key] = {
+                "http_ms_median": 1e3 * float(np.median(http_s[1:])),
+                "server_ms_median": float(np.median(server_ms[1:])),
+                "in_process_ms_median": float(np.median(proc_ms[1:])),
+                "http_ms": [1e3 * x for x in http_s],
+                "server_ms": server_ms, "in_process_ms": proc_ms}
+            log(f"[http] /generate {key}: over HTTP {g['http_ms_median']:.2f} "
+                f"ms (of it {g['server_ms_median']:.2f} ms in the server's "
+                f"synth), in process {g['in_process_ms_median']:.2f} ms "
+                f"(medians of 5 after the first), {len(data)} bytes")
+
+        # /stream on the warm service as it serves (cuDNN's default TF32
+        # convolutions): the exact length, and the time to its first PCM
+        # block. Then a second stream against the raw audio of the same
+        # seed and patch count, both in fp32 with cuDNN TF32 off.
+        want, n = svc.stream_samples(8.0)
+        status, meta, data, t_first, t_all = http_stream(httpd, 8.0, 7)
+        check(status == 200 and meta["samples"] == want and meta["patches"] == n,
+              f"/stream meta {meta}")
+        check(len(data) == 44 + 2 * want, f"/stream {len(data)} bytes, want "
+              f"{44 + 2 * want}")
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            _, _, data32, _, _ = http_stream(httpd, 8.0, 7)
+            raw = svc._execute(n, svc._z_rows(7, 1, n))[0, :want]
+        check(len(data32) == 44 + 2 * want, "/stream length with TF32 off")
+        err = float(np.abs(decode_wav(data32) - np.clip(raw, -1, 1)).max())
+        check(err <= FP32_TOL + 1.5 / 32767,
+              f"/stream vs the raw audio: {err} > {FP32_TOL} + one step")
+        out["stream"] = {"first_block_ms": 1e3 * t_first, "total_ms": 1e3 * t_all,
+                         "patches": n, "samples": want, "max_abs_err": err}
+        log(f"[http] /stream 8 s ({n} patches, {want} samples): first PCM block "
+            f"after {1e3 * t_first:.2f} ms, all after {1e3 * t_all:.2f} ms; in "
+            f"fp32, max abs err against the raw audio {err:.3g}")
+
+        # Coalescing: 4 requests from 4 threads at once.
+        co = SynthService(ServeConfig(composer="specgan_flux",
+                                      vocoder="vocoder_istft",
+                                      coalesce_window_ms=20.0), warmup=False)
+        extra.append(co)
+        results, errors = {}, []
+        barrier = threading.Barrier(4)
+
+        def hit(seed):
+            try:
+                barrier.wait(timeout=60)
+                results[seed] = co.synth(4.0, seed=seed, target_rms=0.0)[0]
+            except Exception as e:  # raised below
+                errors.append(e)
+
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            # cuDNN's set-up for the merged batch's shapes, then the burst.
+            co.synth(4.0, seed=0, n_clips=4)
+            calls0 = co.metrics()["device_calls"]
+            threads = [threading.Thread(target=hit, args=(s,))
+                       for s in (11, 12, 13, 14)]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+            co_s = time.perf_counter() - t0
+            solo = {s: svc.synth(4.0, seed=s, target_rms=0.0)[0]
+                    for s in results}
+        check(not errors and len(results) == 4, f"coalesced requests {errors}")
+        calls = co.metrics()["device_calls"] - calls0
+        check(calls < 4, f"4 coalesced requests made {calls} device calls")
+        err = max(float(np.abs(results[s] - solo[s]).max()) for s in results)
+        check(err <= FP32_TOL, f"coalesced vs solo audio: {err} > {FP32_TOL}")
+        out["coalesce"] = {"device_calls": calls, "wall_ms": 1e3 * co_s,
+                           "max_abs_err": err}
+        log(f"[http] coalescing (20 ms window): 4 requests in {calls} device "
+            f"call(s), {1e3 * co_s:.2f} ms wall; max abs err against solo "
+            f"{err:.3g}")
+
+        # Griffin-Lim refinement of every clip.
+        gl = SynthService(ServeConfig(composer="specgan_flux",
+                                      vocoder="vocoder_istft", gl_refine=8),
+                          warmup=False)
+        extra.append(gl)
+        gl.synth(4.0, seed=3)  # set-up
+        gl_ms = []
+        for _ in range(3):
+            refined, meta = gl.synth(4.0, seed=3, target_rms=0.0)
+            gl_ms.append(meta["gen_ms"])
+        plain, meta0 = svc.synth(4.0, seed=3, target_rms=0.0)
+        check(bool(np.isfinite(refined).all()), "refined audio not finite")
+        check(refined.shape == plain.shape and not np.allclose(refined, plain),
+              "gl_refine=8 did not change the audio")
+        out["gl_refine"] = {"ms": gl_ms, "ms_median": float(np.median(gl_ms)),
+                            "unrefined_ms": meta0["gen_ms"]}
+        log(f"[http] gl_refine=8, 4 s: {np.median(gl_ms):.2f} ms (median of "
+            f"3; unrefined {meta0['gen_ms']:.2f} ms)")
+
+        # /metrics of the flagship service, before the reload.
+        status, _, data, _ = http_call(httpd, "GET", "/metrics")
+        out["metrics"] = json.loads(data)
+        log(f"[http] /metrics: {out['metrics']}")
+        check(out["metrics"]["errors"] == 0 and out["metrics"]["requests"] > 0,
+              "metrics")
+
+        # /reload: a missing entry first (400, the old service answers the
+        # same bytes), then phase 8's exported pair by directory.
+        body = {"seconds": 4.0, "seed": 3}
+        _, _, before, _ = http_call(httpd, "POST", "/generate", body)
+        status, _, _, _ = http_call(httpd, "POST", "/reload",
+                               {"vocoder": str(Path(lifecycle["zoo_root"])
+                                               / "missing")})
+        check(status == 400 and httpd.service is svc, "failed reload")
+        _, _, still, _ = http_call(httpd, "POST", "/generate", body)
+        check(still == before, "the old service changed after a failed reload")
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()
+        status, _, data, reload_s = http_call(httpd, "POST", "/reload", {
+            "composer": str(Path(lifecycle["zoo_root"]) / "composer"),
+            "vocoder": str(Path(lifecycle["zoo_root"]) / "vocoder")})
+        peak = torch.cuda.max_memory_allocated()
+        check(status == 200, f"reload onto the exported pair: {status} {data}")
+        new = httpd.service
+        extra.append(new)
+        check(new is not svc and json.loads(data)["vocoder"] == "vocoder",
+              f"reloaded health {data}")
+        _, _, after, _ = http_call(httpd, "POST", "/generate", body)
+        wav, _ = new.synth(4.0, seed=3)
+        check(after == wav_bytes(sr, wav) and after != before,
+              "/generate after the reload is not the new pair's audio")
+        out["reload"] = {"seconds": reload_s, "bytes_before": held,
+                         "peak_bytes": peak,
+                         "bytes_after": torch.cuda.memory_allocated()}
+        log(f"[http] /reload onto the exported pair: {reload_s:.2f} s; memory "
+            f"{held} B before, peak {peak} B during, "
+            f"{out['reload']['bytes_after']} B after")
+        lat = out["metrics"]
+        log(f"[http] p50 {lat['latency_p50_ms']} ms, p95 "
+            f"{lat['latency_p95_ms']} ms over {lat['requests']} requests, on "
+            f"{card_name_and_power()}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        server.join(timeout=60)
+        for s in extra + [svc]:
+            s.close()
+    return out
+
+
+def phase_eval_and_clis(lifecycle: dict, tmp: Path) -> dict:
+    """make_corpus, eval_checkpoint (zoo and run), vocode and generate
+    through the CLIs, in ``tmp`` (main path); the caller zeroes the launch
+    counts before and reads them after."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.scripts import (eval_checkpoint, generate,
+                                                   make_corpus, vocode)
+    from music_synthesis_tpu_torch.utils.wav import read_wav
+
+    out = {}
+    corpus = tmp / "corpus_rich"
+    t0 = time.perf_counter()
+    run_cli(make_corpus, ["--out", str(corpus), "--clips", "256", "--seconds",
+                          "30", "--seed", "0"])
+    out["make_corpus_s"] = time.perf_counter() - t0
+
+    # The zoo flagship against the JAX package's CPU eval of this corpus.
+    t0 = time.perf_counter()
+    run_cli(eval_checkpoint, [
+        "--zoo", "vocoder_istft", "--corpus", str(corpus), "--head", "istft",
+        "--gl-anchor", "--gl-refine", "8", "--out", str(tmp / "eval_zoo")])
+    eval_s = time.perf_counter() - t0
+    ev = json.loads((tmp / "eval_zoo" / "eval.json").read_text())
+    n_clips = ev["n_clips"]
+    tpu = zoo.load_pretrained("vocoder_istft").card["metrics"]["per_clip"]
+    card = card_name_and_power()
+    gaps = {}
+    for k, want in EVAL_JAX_CPU.items():
+        got = ev["per_clip"][k]
+        gaps[k] = [abs(a - b) for a, b in zip(got, want)]
+        log(f"[eval] {k}: card " + ", ".join(f"{v:.4f}" for v in got))
+        log(f"[eval] {k}: JAX CPU " + ", ".join(f"{v:.4f}" for v in want)
+            + f"; max |card - JAX CPU| {max(gaps[k]):.4g} (tolerance "
+            f"{EVAL_TOL[k]:.4g})")
+        log(f"[eval] {k}: TPU (card.json) " + ", ".join(
+            f"{v:.4f}" for v in tpu[k]) + "; max |card - TPU| "
+            f"{max(abs(a - b) for a, b in zip(got, tpu[k])):.4g}")
+    for k, g in gaps.items():
+        check(len(g) == len(EVAL_JAX_CPU[k]) == n_clips, f"{k}: clip count")
+        check(max(g) <= EVAL_TOL[k],
+              f"eval {k} against the JAX CPU eval: {max(g)} > {EVAL_TOL[k]}")
+    out["eval_zoo"] = {"per_clip": ev["per_clip"], "max_gap_jax_cpu": {
+        k: max(g) for k, g in gaps.items()}, "seconds": eval_s,
+        "seconds_per_clip": eval_s / n_clips, "means": {
+            k: v for k, v in ev.items() if k != "per_clip"}}
+    log(f"[eval] zoo vocoder_istft, 8 clips of 4 s with the GL anchor and 8 "
+        f"refinement iterations: {eval_s:.2f} s ({eval_s / n_clips:.3f} s per "
+        f"clip), on {card}; mean distance "
+        f"{ev['copy_synthesis_multires_stft_distance_mean']:.4f}, GL anchor "
+        f"{ev['griffin_lim_anchor_distance_mean']:.4f}, refined "
+        f"{ev['gl_refined_distance_mean']:.4f}")
+
+    # A run of the port's stage-2 CLI: one log-mel launch per clip.
+    before = logmel_kernel.n_launches
+    t0 = time.perf_counter()
+    run_cli(eval_checkpoint, ["--run", lifecycle["run2"], "--corpus",
+                              lifecycle["corpus"], "--out",
+                              str(tmp / "eval_run")])
+    run_s = time.perf_counter() - t0
+    ev_run = json.loads((tmp / "eval_run" / "eval.json").read_text())
+    out["eval_run_launches"] = logmel_kernel.n_launches - before
+    check(out["eval_run_launches"] == ev_run["n_clips"],
+          f"eval --run: {out['eval_run_launches']} log-mel launches for "
+          f"{ev_run['n_clips']} clips")
+    check(all(np.isfinite(v) for v in ev_run["per_clip"]["dist"]),
+          "eval --run metrics")
+    out["eval_run"] = {"seconds": run_s, "checkpoint_step":
+                       ev_run["checkpoint_step"],
+                       "distance_mean":
+                       ev_run["copy_synthesis_multires_stft_distance_mean"]}
+    log(f"[eval] --run (phase 8's stage-2 run, step "
+        f"{ev_run['checkpoint_step']}): {run_s:.2f} s for {ev_run['n_clips']} "
+        f"clips, {out['eval_run_launches']} log-mel launches")
+
+    # vocode, neural and Griffin-Lim, on a corpus clip.
+    clip = sorted(corpus.glob("*.wav"))[0]
+    for name, flags in (("neural", ["--stage2", "vocoder_istft"]),
+                        ("griffin_lim", ["--griffin-lim"])):
+        dst = tmp / f"vocode_{name}.wav"
+        lines = run_cli(vocode, [str(clip), *flags, "--out", str(dst)])
+        sr, y = read_wav(dst)
+        check(y.shape[0] > 0.9 * 30 * sr and np.isfinite(y).all()
+              and np.abs(y).max() > 0.01, f"vocode {name} output")
+        out[f"vocode_{name}"] = next(x for x in lines
+                                     if x.startswith("resynthesized"))
+
+    # generate from the zoo pair.
+    pair = ["--stage1", "specgan_flux", "--stage2", "vocoder_istft"]
+    for name, flags in (("gl_refine", ["--seconds", "8", "--gl-refine", "8"]),
+                        ("interpolate", ["--seconds", "8", "--interpolate",
+                                         "3:7", "--report"]),
+                        ("walk", ["--seconds", "8", "--walk-step", "0.3",
+                                  "--report"])):
+        dst = tmp / f"generate_{name}"
+        lines = run_cli(generate, pair + flags + ["--n", "2", "--out",
+                                                  str(dst)])
+        for i in range(2):
+            sr, y = read_wav(dst / f"sample_{i:03d}.wav")
+            check(abs(y.shape[0] - 8 * sr) < 2 * sr and np.isfinite(y).all()
+                  and np.abs(y).max() > 0.0, f"generate {name} sample {i}")
+        if "--report" in flags:
+            check((dst / "report.html").stat().st_size > 0, "report written")
+        out[f"generate_{name}"] = next(x for x in lines
+                                       if x.startswith("generated"))
     return out
 
 
@@ -1025,18 +1463,38 @@ def main() -> int:
         f"memory {stage1_train['peak_memory_bytes'] / 2**30:.3f} GiB, on "
         f"{card_name_and_power()}")
 
-    log("== phase 8: train -> export -> serve through the CLIs (main path)")
-    logmel_kernel.n_launches = 0
-    lifecycle = phase_lifecycle()
-    launches["lifecycle"] = logmel_kernel.n_launches
-    log(f"[main] kernel launches in the lifecycle: {launches['lifecycle']}")
-    check(launches["lifecycle"] == lifecycle["stage2_launches"],
-          "serving the exported pair launched the log-mel kernel")
+    with tempfile.TemporaryDirectory(prefix="lifecycle_") as tmp:
+        log("== phase 8: train -> export -> serve through the CLIs (main path)")
+        logmel_kernel.n_launches = 0
+        lifecycle = phase_lifecycle(Path(tmp))
+        launches["lifecycle"] = logmel_kernel.n_launches
+        log(f"[main] kernel launches in the lifecycle: {launches['lifecycle']}")
+        check(launches["lifecycle"] == lifecycle["stage2_launches"],
+              "serving the exported pair launched the log-mel kernel")
 
-    log("== phase 9: kernels")
+        log("== phase 9: the HTTP server (main path)")
+        logmel_kernel.n_launches = 0
+        http_out = phase_http(lifecycle)
+        launches["http"] = logmel_kernel.n_launches
+        log(f"[main] kernel launches over HTTP: {launches['http']}")
+        check(launches["http"] == 0, "serving launched the log-mel kernel "
+              "(the reference's serving path runs none)")
+
+        log("== phase 10: evaluation and the inference CLIs (main path)")
+        logmel_kernel.n_launches = 0
+        evals = phase_eval_and_clis(lifecycle, Path(tmp))
+        launches["eval_clis"] = logmel_kernel.n_launches
+        log(f"[main] kernel launches in evaluation and the CLIs: "
+            f"{launches['eval_clis']} ({evals['eval_run_launches']} in "
+            f"eval_checkpoint --run)")
+        check(launches["eval_clis"] == evals["eval_run_launches"] > 0,
+              "only eval_checkpoint --run conditions through the kernel here")
+
+    log("== phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
                     and r["n_mels"] == 128)
+    eval_row = next(r for r in kv["rows"] if r["shape"] == [1, 88064])
     kernels = {"kernels": [{
         "name": "logmel",
         "route": "cuda",
@@ -1058,10 +1516,16 @@ def main() -> int:
         "max_abs_err_fast": kv["worst"]["fast"],
         "build_s": build.seconds,
         "shape": [16, 8192],
+        "eval_clip": {key: eval_row[key] for key in (
+            "shape", "ms", "ms_exact", "plain_ms", "bound_ms", "bound_by",
+            "ffma_ms", "ffma_by", "max_abs_err")},
         "launches_by_path": {"copy_synthesis_and_serving": launches["logmel"],
                              "train_step": launches["train"],
                              "stage1_train_step": launches["stage1_train"],
-                             "lifecycle_clis": launches["lifecycle"]},
+                             "lifecycle_clis": launches["lifecycle"],
+                             "http_serving": launches["http"],
+                             "eval_run": evals["eval_run_launches"],
+                             "eval_and_inference_clis": launches["eval_clis"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
@@ -1071,6 +1535,8 @@ def main() -> int:
                "stage1_train_step": stage1_train,
                "stage1_card_vs_cpu_err": stage1_err,
                "lifecycle": lifecycle,
+               "http": http_out,
+               "eval_and_clis": evals,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

@@ -2,11 +2,13 @@
 
 The JAX package is the reference; this package mirrors its module names so
 each module's counterpart is easy to find, and imports nothing from it.
-Entry points (``serve.SynthService``, ``infer.copy_synthesis``,
-``train.stage1`` / ``train.stage2`` ``make_train_state`` and
-``train_step``, and the CLIs ``python -m music_synthesis_tpu_torch.scripts.
-{train_stage1, train_stage2, export_zoo}``) run on ``cuda`` unless the
-caller passes ``device="cpu"`` (``--device cpu``).
+Entry points (``serve.SynthService`` and ``serve.make_server``,
+``infer.copy_synthesis``, ``train.stage1`` / ``train.stage2``
+``make_train_state`` and ``train_step``, and the CLIs ``python -m
+music_synthesis_tpu_torch.scripts.{train_stage1, train_stage2, export_zoo,
+serve, generate, vocode, eval_checkpoint, make_corpus}``) run on ``cuda``
+unless the caller passes ``device="cpu"`` (``--device cpu``;
+``make_corpus`` runs on the host only).
 
 The one TPU kernel of the reference, the fused log-mel front-end, is a
 hand-written CUDA kernel here (``csrc/logmel.cu``, wrapped by

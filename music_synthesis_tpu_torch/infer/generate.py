@@ -13,6 +13,7 @@ import torch
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
+from music_synthesis_tpu_torch.ops.griffin_lim import refine_with_log_mel
 from music_synthesis_tpu_torch.ops.overlap_add import (
     ola_normalizer,
     ola_window,
@@ -25,6 +26,8 @@ __all__ = [
     "generate",
     "generate_direct",
     "generate_long",
+    "generate_long_refined",
+    "generate_refined",
     "stitch_long_mel",
 ]
 
@@ -57,6 +60,26 @@ def generate(cfg: PipelineConfig, composer: SpectrogramGenerator,
              vocoder: Vocoder, z: torch.Tensor) -> torch.Tensor:
     """Latent ``[B, Z]`` -> waveform ``[B, L]`` through the chunked vocoder."""
     return vocode_chunked(vocoder, composer(z), cfg)
+
+
+def generate_refined(cfg: PipelineConfig, composer: SpectrogramGenerator,
+                     vocoder: Vocoder, z: torch.Tensor,
+                     n_iter: int = 8) -> torch.Tensor:
+    """``generate`` + warm-started Griffin-Lim refinement: the vocoded
+    waveform's phase seeds ``n_iter`` STFT-consistency projections against
+    the composer mel's own pseudo-inverse magnitude
+    (``ops/griffin_lim.py::refine_with_log_mel``)."""
+    mel = composer(z)
+    wav = vocode_chunked(vocoder, mel, cfg)
+    return _refine(cfg, wav, mel, n_iter)
+
+
+def _refine(cfg: PipelineConfig, wav: torch.Tensor, mel: torch.Tensor,
+            n_iter: int) -> torch.Tensor:
+    # The composer's mel is in the GAN's normalized space; the
+    # pseudo-inverse needs the raw log-mel (config.py MelScaler).
+    logmel = mel.float() * cfg.mel_scaler.scale + cfg.mel_scaler.shift
+    return refine_with_log_mel(wav.float(), logmel, cfg.frontend, n_iter=n_iter)
 
 
 def generate_direct(cfg: PipelineConfig, composer: SpectrogramGenerator,
@@ -95,3 +118,14 @@ def stitch_long_mel(cfg: PipelineConfig, composer: SpectrogramGenerator,
     t_long = mel_long.shape[1]
     usable = t_long - (t_long - ic.chunk_frames) % ic.hop_frames
     return mel_long[:, :usable]
+
+
+def generate_long_refined(cfg: PipelineConfig, composer: SpectrogramGenerator,
+                          vocoder: Vocoder, z: torch.Tensor,
+                          crossfade_frames: int = 8,
+                          n_iter: int = 8) -> torch.Tensor:
+    """``generate_long`` + warm-started Griffin-Lim refinement (see
+    ``generate_refined``)."""
+    mel_long = stitch_long_mel(cfg, composer, z, crossfade_frames)
+    wav = vocode_chunked(vocoder, mel_long, cfg)
+    return _refine(cfg, wav, mel_long, n_iter)

@@ -234,8 +234,10 @@ logmel_kernel = LogMelKernel()
 def log_mel_frames_plain(padded: torch.Tensor, cfg: FrontendConfig,
                          n_frames: int) -> torch.Tensor:
     """The plain version of ``logmel_kernel``: frames ``0..n_frames-1`` of
-    an already padded ``[B, L]``, on any device."""
-    c, s, m, _ = _constants(cfg, padded.device)
+    an already padded ``[B, L]``, on any device, in ``padded``'s dtype (the
+    fp32 constants are widened for a float64 input, which gives the exact
+    answer the kernel's fp32 arithmetic is held to)."""
+    c, s, m = (t.to(padded.dtype) for t in _constants(cfg, padded.device)[:3])
     frames = padded.unfold(-1, cfg.n_fft, cfg.hop_length)[:, :n_frames]
     power = (frames @ c) ** 2 + (frames @ s) ** 2
     if cfg.power == 1.0:

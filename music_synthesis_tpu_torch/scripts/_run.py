@@ -33,7 +33,7 @@ from music_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from music_synthesis_tpu_torch.train.guard import CollapseGuard
 from music_synthesis_tpu_torch.train.metrics import MetricsLogger
 
-__all__ = ["device_from_args", "prepare_run",
+__all__ = ["device_from_args", "cli_device", "prepare_run",
            "host_tensor", "host_batches", "Run"]
 
 
@@ -46,11 +46,15 @@ def device_from_args(ap: argparse.ArgumentParser,
             f"--mesh {args.mesh} (--dp {args.dp}): data-parallel training is "
             "not ported yet (ROADMAP.md Queue 1 item 10, DDP); run with "
             "--mesh 1")
+    return cli_device(ap, args.device)
+
+
+def cli_device(ap: argparse.ArgumentParser, device: str) -> torch.device:
+    """``resolve_device(device)``, or exit 1 with the reason (no card)."""
     try:
-        dev = resolve_device(args.device)
+        return resolve_device(device)
     except RuntimeError as e:
         ap.exit(1, f"{ap.prog}: {e}\n")
-    return dev
 
 
 def prepare_run(args: argparse.Namespace, cfg: PipelineConfig,

@@ -20,7 +20,11 @@ the losses and 3e-4 on the gradient norms, as ``chip_smoke.py``'s
 ``TRAIN_TOL``, which the same step with TF32 on must fail; for one TINY
 stage-1 step from the same kind of state, 1e-6 relative on the losses and
 1e-4 on the gradient norms, as ``chip_smoke.py``'s ``STAGE1_TOL``, which the
-same step with TF32 on must fail.
+same step with TF32 on must fail; Griffin-Lim on the card bit-identical
+with cuBLAS's TF32 switch on and off, and against the CPU as the CPU tests
+hold it against JAX (2e-4 on the refinement, 3e-2 on cold GL's spectral
+convergence); a stream on the card against ``generate_long`` on the card,
+1e-4 relative and 1e-5 absolute.
 """
 
 import numpy as np
@@ -257,3 +261,83 @@ def test_tiny_stage1_step_on_the_card_matches_cpu(cuda):
     rel = {k: abs(m_tf32[k] - m_cpu[k]) / abs(m_cpu[k]) for k in tol}
     print("stage-1 TINY card vs CPU, TF32 on:", rel)
     assert any(rel[k] > rtol for k, rtol in tol.items()), m_tf32
+
+
+def _tone_logmel(device):
+    """Two 0.4 s tone clips and their vocoder-aligned log-mel (flagship
+    front-end), on ``device``."""
+    from music_synthesis_tpu_torch.ops.frontend import log_mel_for_vocoder
+
+    sr, n = 22050, 8704
+    t = np.arange(n) / sr
+    x = np.stack([0.3 * np.sin(2 * np.pi * 440 * t)
+                  + 0.15 * np.sin(2 * np.pi * 660 * t),
+                  0.25 * np.sin(2 * np.pi * 330 * t) * np.exp(-2 * t)])
+    x = torch.from_numpy(x.astype(np.float32)).to(device)
+    return x, log_mel_for_vocoder(x, FrontendConfig())
+
+
+def test_griffin_lim_on_the_card_ignores_tf32_and_matches_cpu(cuda):
+    """Griffin-Lim on the card gives the same bits with cuBLAS's TF32 switch
+    on as off (its GEMM runs in float64, its irDFT in cuFFT), and matches
+    the CPU: the warm-started refinement to 2e-4 (the port-vs-JAX CPU gap's
+    tolerance in tests/test_torch_griffin_lim.py), cold GL at 48 iterations
+    by spectral convergence to 3e-2 relative (as there)."""
+    from music_synthesis_tpu_torch.ops import griffin_lim as gl
+    from music_synthesis_tpu_torch.ops.frontend import stft
+
+    cfg = FrontendConfig()
+    x, lm = _tone_logmel(cuda)
+    flag = torch.backends.cuda.matmul.allow_tf32
+    outs = {}
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            outs[tf32] = (gl.invert_log_mel(lm, cfg, 48),
+                          gl.refine_with_log_mel(x, lm, cfg, 8))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flag
+    for a, b in zip(outs[False], outs[True]):
+        assert torch.equal(a, b)
+    cold, refined = (t.cpu() for t in outs[False])
+    x_cpu, lm_cpu = x.cpu(), lm.cpu()
+    torch.testing.assert_close(refined, gl.refine_with_log_mel(
+        x_cpu, lm_cpu, cfg, 8), rtol=0, atol=2e-4)
+    mag = gl.log_mel_to_magnitude(lm_cpu, cfg)
+
+    def sc(y):
+        s = stft(torch.nn.functional.pad(y, (384, 384)), 1024, 256).abs()
+        return float(torch.linalg.norm(s - mag) / torch.linalg.norm(mag))
+
+    np.testing.assert_allclose(sc(cold), sc(gl.invert_log_mel(lm_cpu, cfg, 48)),
+                               rtol=3e-2)
+
+
+def test_stream_on_the_card_matches_generate_long(cuda):
+    """The zoo pair streamed on the card equals ``generate_long`` on the card
+    on the same latents (fp32, cuDNN TF32 off: 1e-4 relative, 1e-5
+    absolute, the CPU tests' tolerance)."""
+    import dataclasses
+
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.config import E2E_INFERENCE
+    from music_synthesis_tpu_torch.infer.generate import generate_long
+    from music_synthesis_tpu_torch.infer.stream import StreamingSynth
+
+    comp_e = zoo.load_pretrained("specgan_flux")
+    voc_e = zoo.load_pretrained("vocoder_istft")
+    cfg = dataclasses.replace(
+        E2E_INFERENCE, specgan=comp_e.config,
+        vocoder=dataclasses.replace(voc_e.config, compute_dtype="float32"))
+    comp = comp_e.model(cuda, "float32")
+    voc = voc_e.model(cuda, "float32")
+    z = torch.from_numpy(np.random.default_rng(4).standard_normal(
+        (1, 3, cfg.specgan.latent_dim)).astype(np.float32))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with torch.inference_mode():
+            want = generate_long(cfg, comp, voc, z.to(cuda), 8).cpu().numpy()
+        s = StreamingSynth(cfg, comp, voc, crossfade_frames=8)
+        parts = [s.feed(z[:, i]) for i in range(3)] + [s.finish()]
+    got = np.concatenate(parts, axis=-1)
+    assert got.shape == want.shape and np.abs(want).max() > 1e-2
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)

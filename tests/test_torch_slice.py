@@ -10,7 +10,6 @@ card's bf16.
 
 import dataclasses
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,49 +27,22 @@ from music_synthesis_tpu.serve import ServeConfig as JaxServeConfig
 from music_synthesis_tpu.serve import SynthService as JaxSynthService
 from music_synthesis_tpu.train.stage2 import conditioning_mel
 from music_synthesis_tpu_torch import config, zoo
-from music_synthesis_tpu_torch.convert import to_state_dict
 from music_synthesis_tpu_torch.infer import generate
 from music_synthesis_tpu_torch.infer.copy_synthesis import (
     CopySynthesizer,
     copy_synthesis,
 )
-from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
-from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
+
+import torch_tiny_ref
+from torch_tiny_ref import ISTFT
+from torch_tiny_ref import tiny_composer as _tiny_composer
+from torch_tiny_ref import tiny_vocoder as _tiny_vocoder
 
 torch.set_num_threads(1)
 
 TOL = 1e-4
 BF16_TOL = 2e-2
-ISTFT = dict(upsample_factors=(8, 8), head="istft")
-
-
-def _jitter(params, seed):
-    rng = np.random.default_rng(seed)
-    return jax.tree.map(
-        lambda p: (np.asarray(p) + 0.5 * rng.standard_normal(p.shape))
-        .astype(np.float32), params)
-
-
-def _tiny_vocoder(seed=0, **kw):
-    jcfg = dataclasses.replace(jax_config.TINY.vocoder, **kw)
-    cfg = dataclasses.replace(config.TINY.vocoder, **kw)
-    mel0 = jnp.zeros((1, 8, jcfg.n_mels))
-    params = _jitter(JaxVocoder(jcfg).init(jax.random.PRNGKey(seed), mel0)
-                     ["params"], seed)
-    port = Vocoder(cfg)
-    port.load_state_dict(to_state_dict(params))
-    return JaxVocoder(jcfg), params, port.eval()
-
-
-def _tiny_composer(seed=1):
-    jcfg, cfg = jax_config.TINY.specgan, config.TINY.specgan
-    z0 = jnp.zeros((1, jcfg.latent_dim))
-    params = _jitter(JaxGenerator(jcfg).init(jax.random.PRNGKey(seed), z0)
-                     ["params"], seed)
-    port = SpectrogramGenerator(cfg)
-    port.load_state_dict(to_state_dict(params))
-    return JaxGenerator(jcfg), params, port.eval()
 
 
 def _close(got, want, tol=TOL):
@@ -106,14 +78,7 @@ def test_tiny_composer_matches_jax():
 def tiny_pair():
     """TINY composer + iSTFT vocoder: (jax cfg, port cfg, jax params x2,
     port modules x2)."""
-    jcfg = dataclasses.replace(
-        jax_config.TINY,
-        vocoder=dataclasses.replace(jax_config.TINY.vocoder, **ISTFT))
-    cfg = dataclasses.replace(
-        config.TINY, vocoder=dataclasses.replace(config.TINY.vocoder, **ISTFT))
-    _, vp, voc = _tiny_vocoder(seed=4, **ISTFT)
-    _, sp, comp = _tiny_composer(seed=5)
-    return jcfg, cfg, sp, vp, comp, voc
+    return torch_tiny_ref.tiny_pair(seed=4)
 
 
 @pytest.mark.parametrize("crossfade", [8, 0])
@@ -232,18 +197,8 @@ def test_copy_synthesizer_full_width_on_cpu():
 @pytest.fixture(scope="module")
 def tiny_zoo(tmp_path_factory):
     """TINY composer + iSTFT vocoder saved as JAX zoo entries."""
-    root = tmp_path_factory.mktemp("zoo")
-    jv_cfg = dataclasses.replace(jax_config.TINY.vocoder, **ISTFT)
-    _, vp, _ = _tiny_vocoder(seed=11, **ISTFT)
-    _, sp, _ = _tiny_composer(seed=12)
-    t = jax_config.TINY
-    jax_zoo.save_pretrained("composer_t", "specgan", sp, t.specgan,
-                            frontend=t.frontend, mel_scaler=t.mel_scaler,
-                            root=root)
-    jax_zoo.save_pretrained("vocoder_t", "vocoder", vp, jv_cfg,
-                            frontend=t.frontend, mel_scaler=t.mel_scaler,
-                            root=root)
-    return root
+    return torch_tiny_ref.save_tiny_zoo(tmp_path_factory.mktemp("zoo"),
+                                        seed=11)
 
 
 SERVE = dict(composer="composer_t", vocoder="vocoder_t", batch_buckets=(1, 2),
