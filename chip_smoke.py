@@ -99,16 +99,38 @@ at the flagship's full width with the committed zoo weights, in phases:
    ``generate`` from the zoo pair (``--seconds 8 --gl-refine 8``, and with
    ``--interpolate``, ``--walk-step`` and ``--report``): files written,
    audio finite;
-11. the ``kernels`` JSON line.
+12. data parallelism (main path), in ranks that ``parallel.mesh.launch``
+   spawns (each builds nothing: it loads phase 1's library): two gloo
+   ranks sharing ``cuda:0`` run one fp32 step (TF32 off, the "exact"
+   kernel) of each DP mode (``--dp jit`` and ``--dp shard_map``) of both
+   flagships at their full width, global batch 16 (8 per rank), from the
+   state of phases 6-7's card-vs-CPU checks with the draws injected,
+   against the single-process step on the whole batch in this process
+   (``TRAIN_TOL``, ``STAGE1_TOL``; ``g_rms_ratio`` of ``shard_map``, the
+   mean of the shards' ratios, is not compared); the ranks' states must
+   be equal and each rank's stage-2 step must launch the kernel once; then
+   the bf16 flagship step per rank and the gradient all-reduce, timed (two
+   ranks on one card: not a scaling number); one NCCL rank runs the same
+   check and times the DP step against the plain step; two NCCL ranks on
+   two cards when there are two (else a line says so); the flagship
+   vocoder's sequence-sharded vocode over ``[cuda:0, cuda:0]`` against one
+   device (interior, ``FP32_TOL``); the serving split and gather over
+   ``[cuda:0, cuda:0]`` against one device (``FP32_TOL``), and
+   ``mesh_devices=2`` refused on a one-card machine (this process
+   launches the kernel once here, in the single-process stage-2 step);
+11. the ``kernels`` JSON line (printed after phase 12).
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
 and again around each of phases 6, 7, 8, 9 and 10 (and around phase 10's
-``eval_checkpoint --run``).
+``eval_checkpoint --run``); phase 12's ranks read theirs around their
+steps.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA card; exits non-zero without one. Starts no process other than
-nvcc and nvidia-smi; phase 9's server and coalescer threads are shut down
-before it ends, and the CLIs' batch-prefetch threads end with each CLI.
+nvcc, nvidia-smi and phase 12's ranks (which it joins: a rank that fails
+stops the others and fails the phase); phase 9's server and coalescer
+threads are shut down before it ends, and the CLIs' batch-prefetch threads
+end with each CLI.
 """
 
 from __future__ import annotations
@@ -1378,6 +1400,376 @@ def phase_eval_and_clis(lifecycle: dict, tmp: Path) -> dict:
     return out
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: data parallelism. The rank functions below run in processes that
+# ``parallel.mesh.launch`` spawns (they import this file, whose main() is
+# guarded); every other function runs in this process.
+
+DP_RANKS = 2
+DP_BATCH = 16  # the flagships' global batch, DP_BATCH // DP_RANKS per rank
+
+
+def _rank_rows(n: int) -> slice:
+    from music_synthesis_tpu_torch.parallel import mesh
+
+    per = n // mesh.world_size()
+    return slice(per * mesh.rank(), per * (mesh.rank() + 1))
+
+
+def _params_err(state, single: dict) -> dict:
+    return {part: max((getattr(state, f"{part}_params")[k].float()
+                       - v.to(getattr(state, f"{part}_params")[k].device)
+                       ).abs().max().item() for k, v in single[part].items())
+            for part in ("g", "d")}
+
+
+def _checksum(state) -> float:
+    return float(sum(v.double().sum().item() for part in (state.g_params,
+                                                          state.d_params)
+                     for v in part.values()))
+
+
+def _rank_check(job: dict) -> dict:
+    """One fp32 step (TF32 off, the "exact" kernel) of a DP mode from the
+    saved state on this rank's rows, with the injected draws; its metrics,
+    the log-mel launches, and its parameters' distance to the
+    single-process step's."""
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.parallel import dp as dp_mod
+    from music_synthesis_tpu_torch.parallel import shard_map_dp
+    from music_synthesis_tpu_torch.train.checkpoint import restore_checkpoint
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    make = {(2, "jit"): dp_mod.make_dp_stage2_step,
+            (2, "shard_map"): shard_map_dp.make_shardmap_stage2_step,
+            (1, "jit"): dp_mod.make_dp_stage1_step,
+            (1, "shard_map"): shard_map_dp.make_shardmap_stage1_step}
+    step = make[job["stage"], job["dp"]](job["cfg"])
+    state = restore_checkpoint(job["state"], dev)
+    rows = _rank_rows(job["batch"].shape[0])
+    batch = torch.from_numpy(job["batch"][rows]).to(dev)
+    noise = [n[rows] for n in job["noise"]]
+    kw = ({"noise": noise, "precision": "exact"} if job["stage"] == 2
+          else {"noise": noise, "z": job["z"][rows]})
+    before = logmel_kernel.n_launches
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            state, m = step(state, batch, **kw)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+    single = torch.load(job["single"], map_location="cpu")
+    return {"metrics": m, "launches": logmel_kernel.n_launches - before,
+            "param_err": _params_err(state, single),
+            "checksum": _checksum(state)}
+
+
+def _rank_time(job: dict) -> dict:
+    """The flagship's bf16 DP step (``--dp shard_map``, the "fast"
+    kernel) on this rank's rows: one warm-up, then ``job["steps"]`` steps
+    timed with CUDA events; with ``job["plain"]`` the single-process step
+    on the same rows is timed the same way (the overhead of the group);
+    and the gradient all-reduce alone on tensors of G's and D's sizes."""
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.parallel import mesh
+    from music_synthesis_tpu_torch.parallel.shard_map_dp import (
+        make_shardmap_stage2_step)
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.checkpoint import restore_checkpoint
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg = job["cfg"]
+    rows = _rank_rows(job["batch"].shape[0])
+    wav = torch.from_numpy(job["batch"][rows]).to(dev)
+
+    def timed(step_fn):
+        state = restore_checkpoint(job["state"], dev)
+        state, _ = step_fn(state, wav)  # warm-up
+        out = []
+        for _ in range(job["steps"]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, wav)
+            end.record()
+            end.synchronize()
+            out.append(start.elapsed_time(end))
+        return out, m
+
+    before = logmel_kernel.n_launches
+    dp_ms, m = timed(make_shardmap_stage2_step(cfg))
+    launches = logmel_kernel.n_launches - before
+    plain_ms = (timed(lambda s, w: stage2.train_step(cfg, s, w))[0]
+                if job["plain"] else None)
+    state = restore_checkpoint(job["state"], dev)
+    reduce_ms = {}
+    for part in ("g", "d"):
+        tensors = list(getattr(state, f"{part}_params").values())
+        mesh.all_reduce_mean(tensors)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mesh.all_reduce_mean(tensors)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        reduce_ms[part] = float(np.median(times))
+    return {"dp_ms": dp_ms, "plain_ms": plain_ms, "reduce_ms": reduce_ms,
+            "launches": launches, "metrics": m,
+            "n_params": {p: sum(v.numel() for v in getattr(
+                state, f"{p}_params").values()) for p in ("g", "d")}}
+
+
+def dp_rank_jobs(jobs: list) -> list:
+    """What each rank of phase 12 runs: ``jobs`` in order."""
+    kinds = {"check": _rank_check, "time": _rank_time}
+    return [kinds[j["kind"]](j) for j in jobs]
+
+
+def _single_step(stage: int, cfg, state, batch, z, noise) -> tuple:
+    """The single-process fp32 step (TF32 off) on the whole batch."""
+    from music_synthesis_tpu_torch.train import stage1, stage2
+
+    matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            if stage == 2:
+                return stage2.train_step(cfg, state, batch, noise=noise,
+                                         precision="exact")
+            return stage1.train_step(cfg, state, batch, z=z, noise=noise)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
+
+
+def _dp_inputs(tmp: Path, seed: int) -> dict:
+    """Both flagships' fp32 DP checks: the state (zoo G, ``he_gain_d``,
+    ``warm_second_moment``; stage 2 past the warmup gate) saved for the
+    ranks, the global batch and draws, and the single-process step's
+    metrics and parameters."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train.checkpoint import save_checkpoint
+    from music_synthesis_tpu_torch.train.flagship import (
+        flagship_config, stage1_flagship_config, zoo_train_state)
+
+    rng = np.random.default_rng(seed)
+    out = {}
+    for stage in (2, 1):
+        if stage == 2:
+            entry = zoo.load_pretrained("vocoder_istft")
+            cfg = flagship_config(entry)
+            cfg = dataclasses.replace(
+                cfg, vocoder=dataclasses.replace(cfg.vocoder,
+                                                 compute_dtype="float32"),
+                msd=dataclasses.replace(cfg.msd, compute_dtype="float32"),
+                mrd=dataclasses.replace(cfg.mrd, compute_dtype="float32"))
+            gains = TRAIN_D_OUT_GAIN
+            batch = test_audio(rng, DP_BATCH, cfg.train.segment_length,
+                               cfg.frontend.sample_rate)
+            z = None
+        else:
+            entry = zoo.load_pretrained("specgan_flux")
+            cfg = stage1_flagship_config(entry)
+            gains = {"conv_out": STAGE1_D_OUT_GAIN}
+            batch = stage1_patches(rng, cfg, "cpu").numpy()
+            z = rng.standard_normal((DP_BATCH, cfg.specgan.latent_dim)).astype(
+                np.float32)
+        check(cfg.train.batch_size == DP_BATCH == batch.shape[0],
+              f"stage {stage}: the flagship's batch is {DP_BATCH}")
+        noise = [rng.standard_normal(batch.shape).astype(np.float32)
+                 for _ in range(3)]
+        state = zoo_train_state(cfg, entry, "cuda", seed=cfg.train.seed)
+        state = dataclasses.replace(
+            state, step=cfg.train.g_warmup_steps,
+            d_params=he_gain_d(state.d_params, seed, gains),
+            d_opt=warm_second_moment(state.d_opt))
+        save_checkpoint(tmp / f"dp_state{stage}.pt", state)
+        new, m = _single_step(stage, cfg, state, torch.from_numpy(batch).cuda(),
+                              z, noise)
+        torch.save({"g": {k: v.cpu() for k, v in new.g_params.items()},
+                    "d": {k: v.cpu() for k, v in new.d_params.items()}},
+                   tmp / f"dp_single{stage}.pt")
+        out[stage] = {"cfg": cfg, "batch": batch, "z": z, "noise": noise,
+                      "metrics": m, "state": str(tmp / f"dp_state{stage}.pt"),
+                      "single": str(tmp / f"dp_single{stage}.pt")}
+    return out
+
+
+def _check_job(inputs: dict, stage: int, dp: str) -> dict:
+    i = inputs[stage]
+    return {"kind": "check", "stage": stage, "dp": dp, "cfg": i["cfg"],
+            "state": i["state"], "single": i["single"], "batch": i["batch"],
+            "z": i["z"], "noise": i["noise"]}
+
+
+def _hold_to_single(label: str, res: list, want: dict, stage: int,
+                    skip=()) -> dict:
+    """Every rank's metrics against the single-process step's (``TRAIN_TOL``
+    or ``STAGE1_TOL`` by metric kind), the ranks' states equal; returns the
+    worst relative gap per metric."""
+    tol = TRAIN_TOL if stage == 2 else STAGE1_TOL
+    losses = TRAIN_LOSSES if stage == 2 else STAGE1_LOSSES
+    kinds = {k: kind for names, kind in ((losses, "loss"),
+                                         (TRAIN_GRAD_NORMS, "grad_norm"))
+             for k in names if k not in skip}
+    rel = {k: max(abs(r["metrics"][k] - want[k]) / abs(want[k]) for r in res)
+           for k in kinds}
+    log(f"[dp] {label} vs the single-process step on [{DP_BATCH}, ...] "
+        f"(fp32, TF32 off): |diff| / |single| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in rel.items())
+        + "; params max abs diff " + ", ".join(
+            f"rank {n}: G {r['param_err']['g']:.3g} D {r['param_err']['d']:.3g}"
+            for n, r in enumerate(res)) + f"; on {card_name_and_power()}")
+    for k, kind in kinds.items():
+        check(rel[k] <= tol[kind], f"{label}: {k} |diff| / |single| "
+              f"{rel[k]:.3g} > {tol[kind]}")
+    check(len({r["checksum"] for r in res}) == 1,
+          f"{label}: the ranks' states differ")
+    check(all(r["launches"] == (1 if stage == 2 else 0) for r in res),
+          f"{label}: log-mel launches per rank {[r['launches'] for r in res]}")
+    return rel
+
+
+def phase_data_parallel(tmp: Path, seed: int = DEFAULT_PATH_SEED) -> dict:
+    """Both training steps over ranks at the flagships' full width (main
+    path), sequence-sharded vocoding and the serving split over a device
+    list; the log-mel launches are counted in the ranks."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.parallel import mesh
+    from music_synthesis_tpu_torch.parallel.seqshard import (
+        make_seqshard_vocode, receptive_field_frames)
+    from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
+    from music_synthesis_tpu_torch.train.flagship import (flagship_config,
+                                                          zoo_train_state)
+    from music_synthesis_tpu_torch.train.checkpoint import save_checkpoint
+
+    card = card_name_and_power()
+    out = {"card": card}
+    inputs = _dp_inputs(tmp, seed)
+    # The bf16 flagship for the timing (G from the zoo, D seeded, past the
+    # gate: the recipe's adversarial step).
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg16 = flagship_config(entry)
+    st16 = zoo_train_state(cfg16, entry, "cuda", seed=cfg16.train.seed)
+    st16 = dataclasses.replace(st16, step=cfg16.train.g_warmup_steps)
+    save_checkpoint(tmp / "dp_state_bf16.pt", st16)
+    del st16
+    time_job = {"kind": "time", "cfg": cfg16, "state": str(tmp / "dp_state_bf16.pt"),
+                "batch": inputs[2]["batch"], "steps": 3, "plain": False}
+
+    # Two gloo ranks on one card: both modes of both stages, then timing.
+    jobs = ([_check_job(inputs, s, dp) for s in (2, 1)
+             for dp in ("jit", "shard_map")] + [time_job])
+    t0 = time.perf_counter()
+    ranks = mesh.launch(dp_rank_jobs, DP_RANKS, (jobs,), backend="gloo",
+                        devices=["cuda:0"] * DP_RANKS)
+    out["gloo_s"] = time.perf_counter() - t0
+    gaps = {}
+    for n, job in enumerate(jobs[:-1]):
+        label = f"stage {job['stage']} --dp {job['dp']}, 2 gloo ranks on cuda:0"
+        skip = ("g_rms_ratio",) if job["dp"] == "shard_map" else ()
+        gaps[f"stage{job['stage']}_{job['dp']}"] = _hold_to_single(
+            label, [r[n] for r in ranks], inputs[job["stage"]]["metrics"],
+            job["stage"], skip)
+    out["gaps"] = gaps
+    timing = [r[-1] for r in ranks]
+    out["gloo_bf16"] = timing
+    log(f"[dp] flagship bf16 step per rank, 2 gloo ranks sharing cuda:0 (not "
+        f"a scaling number: both ranks run on one card): " + "; ".join(
+            f"rank {n}: {', '.join(f'{x:.2f}' for x in t['dp_ms'])} ms"
+            for n, t in enumerate(timing))
+        + f"; gradient all-reduce through the host (gloo): G "
+        f"{timing[0]['reduce_ms']['g']:.2f} ms ({timing[0]['n_params']['g']} "
+        f"floats), D {timing[0]['reduce_ms']['d']:.2f} ms "
+        f"({timing[0]['n_params']['d']} floats); on {card}")
+    out["dp_launches"] = sum(r[n]["launches"] for r in ranks
+                             for n in range(len(jobs)))
+
+    # One NCCL rank: NCCL's init and the reduction path on the card.
+    t0 = time.perf_counter()
+    (nccl,) = mesh.launch(dp_rank_jobs, 1, ([_check_job(inputs, 2, "jit"),
+                                             {**time_job, "plain": True}],),
+                          backend="nccl", devices=["cuda:0"])
+    out["nccl_s"] = time.perf_counter() - t0
+    gaps["stage2_nccl_world1"] = _hold_to_single(
+        "stage 2 --dp jit, 1 NCCL rank", [nccl[0]],
+        inputs[2]["metrics"], 2)
+    t = nccl[1]
+    dp_med, plain_med = float(np.median(t["dp_ms"])), float(np.median(t["plain_ms"]))
+    out["nccl_world1"] = t
+    log(f"[dp] 1 NCCL rank, flagship bf16 [16, 8192]: DP step "
+        f"{', '.join(f'{x:.2f}' for x in t['dp_ms'])} ms (median "
+        f"{dp_med:.2f}), plain step {', '.join(f'{x:.2f}' for x in t['plain_ms'])} "
+        f"ms (median {plain_med:.2f}): overhead {dp_med - plain_med:+.2f} ms; "
+        f"all-reduce G {t['reduce_ms']['g']:.3f} ms, D {t['reduce_ms']['d']:.3f} "
+        f"ms; on {card}")
+    out["dp_launches"] += nccl[0]["launches"] + t["launches"]
+    if torch.cuda.device_count() >= 2:
+        ranks = mesh.launch(dp_rank_jobs, 2, ([_check_job(inputs, 2, "jit"),
+                                               time_job],),
+                            backend="nccl", devices=["cuda:0", "cuda:1"])
+        gaps["stage2_nccl_2cards"] = _hold_to_single(
+            "stage 2 --dp jit, 2 NCCL ranks on cuda:0/cuda:1",
+            [r[0] for r in ranks], inputs[2]["metrics"], 2)
+        out["nccl_2cards"] = [r[1] for r in ranks]
+        out["dp_launches"] += sum(r[0]["launches"] + r[1]["launches"]
+                                  for r in ranks)
+    else:
+        log(f"[dp] 2 NCCL ranks on two cards: not run ({torch.cuda.device_count()} "
+            f"card visible; NCCL refuses two ranks on one device)")
+
+    # Sequence-sharded vocoding over [cuda:0, cuda:0], fp32, TF32 off.
+    voc = entry.model("cuda", "float32")
+    t_frames = 344  # 4 s at hop 256
+    mel = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (2, t_frames, voc.cfg.n_mels)).astype(np.float32)).cuda()
+    fn = make_seqshard_vocode(voc, ["cuda:0", "cuda:0"])
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+            torch.inference_mode():
+        sharded = fn(mel)
+        direct = voc(mel)
+    h = receptive_field_frames(voc.cfg) + 2
+    mid = slice(h * voc.cfg.hop_length, -h * voc.cfg.hop_length)
+    check(sharded.shape == direct.shape, f"seqshard {tuple(sharded.shape)}")
+    err = (sharded[:, mid] - direct[:, mid]).abs().max().item()
+    log(f"[dp] seqshard vocode [2, {t_frames}] over [cuda:0, cuda:0] (halo "
+        f"{h} frames) vs one device, interior: max abs err {err:.3g} "
+        f"(FP32_TOL {FP32_TOL})")
+    check(err <= FP32_TOL, f"seqshard vocode: {err} > {FP32_TOL}")
+    out["seqshard_err"] = err
+
+    # The serving split/gather over [cuda:0, cuda:0] against one device.
+    sc = ServeConfig(composer="specgan_flux", vocoder="vocoder_istft",
+                     batch_buckets=(2, 4), patch_buckets=(1, 2))
+    one = SynthService(sc, warmup=False)
+    two = SynthService(dataclasses.replace(sc, mesh_devices=2),
+                       devices=["cuda:0", "cuda:0"], warmup=False)
+    try:
+        check(two.health()["mesh_devices"] == 2, "health mesh_devices")
+        rows = two._z_rows(7, 3, 2)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            a, b = two._execute(2, rows), one._execute(2, rows)
+        err = float(np.abs(a - b).max())
+        log(f"[dp] serving split over [cuda:0, cuda:0] vs one device (3 clips, "
+            f"bucket 4, fp32, TF32 off): max abs err {err:.3g} (FP32_TOL)")
+        check(err <= FP32_TOL and np.isfinite(a).all(), f"split serving {err}")
+        out["serve_split_err"] = err
+    finally:
+        one.close()
+        two.close()
+    if torch.cuda.device_count() < 2:
+        try:
+            SynthService(dataclasses.replace(sc, mesh_devices=2), warmup=False)
+        except RuntimeError as e:
+            log(f"[dp] SynthService(mesh_devices=2) on one card raises: {e}")
+            out["mesh2_refusal"] = str(e)
+        else:
+            raise AssertionError("mesh_devices=2 on one card did not raise")
+    return out
+
+
 def cpu_gaps() -> dict:
     """The CPU's own max abs gaps between bf16 and fp32 at the default-path
     checks' inputs and weights: copy-synthesis (waveform and distance) and
@@ -1490,6 +1882,19 @@ def main() -> int:
         check(launches["eval_clis"] == evals["eval_run_launches"] > 0,
               "only eval_checkpoint --run conditions through the kernel here")
 
+        log("== phase 12: data parallelism (main path, in spawned ranks)")
+        logmel_kernel.n_launches = 0
+        dp = phase_data_parallel(Path(tmp))
+        launches["dp_single"] = logmel_kernel.n_launches
+        check(launches["dp_single"] == 1,
+              "in this process phase 12 launches the kernel once, in the "
+              "single-process stage-2 step the ranks are held to")
+        launches["dp_train"] = dp["dp_launches"]
+        log(f"[main] kernel launches in the ranks' DP steps: "
+            f"{launches['dp_train']} (1 per rank per stage-2 step), and "
+            f"{launches['dp_single']} in this process's single-process step")
+        check(launches["dp_train"] > 0, "the DP steps never launched the kernel")
+
     log("== phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
@@ -1525,7 +1930,9 @@ def main() -> int:
                              "lifecycle_clis": launches["lifecycle"],
                              "http_serving": launches["http"],
                              "eval_run": evals["eval_run_launches"],
-                             "eval_and_inference_clis": launches["eval_clis"]},
+                             "eval_and_inference_clis": launches["eval_clis"],
+                             "dp_train_step": launches["dp_train"],
+                             "dp_single_step": launches["dp_single"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
@@ -1537,6 +1944,7 @@ def main() -> int:
                "lifecycle": lifecycle,
                "http": http_out,
                "eval_and_clis": evals,
+               "data_parallel": dp,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

@@ -5,10 +5,12 @@ each module's counterpart is easy to find, and imports nothing from it.
 Entry points (``serve.SynthService`` and ``serve.make_server``,
 ``infer.copy_synthesis``, ``train.stage1`` / ``train.stage2``
 ``make_train_state`` and ``train_step``, and the CLIs ``python -m
-music_synthesis_tpu_torch.scripts.{train_stage1, train_stage2, export_zoo,
-serve, generate, vocode, eval_checkpoint, make_corpus}``) run on ``cuda``
-unless the caller passes ``device="cpu"`` (``--device cpu``;
-``make_corpus`` runs on the host only).
+music_synthesis_tpu_torch.scripts.{train_stage1, train_stage2,
+train_two_stage, export_zoo, serve, generate, vocode, eval_checkpoint,
+make_corpus}``) run on ``cuda`` unless the caller passes ``device="cpu"``
+(``--device cpu``; ``make_corpus`` runs on the host only). Data
+parallelism (``parallel/``) runs training over ``torch.distributed``
+ranks and inference over a list of devices in one process.
 
 The one TPU kernel of the reference, the fused log-mel front-end, is a
 hand-written CUDA kernel here (``csrc/logmel.cu``, wrapped by

@@ -7,8 +7,9 @@
 
 Every (batch, patches) bucket and the streaming calls run once at start-up
 (``serve.SynthService.warm_all``); the routes are ``serve.py``'s. Runs on
-``cuda`` unless ``--device cpu`` is given; ``--mesh > 1`` is not ported
-yet.
+``cuda`` unless ``--device cpu`` is given. ``--mesh N`` shards each
+bucket's batch over ``cuda:0`` .. ``cuda:N-1`` (N replicas on the CPU
+with ``--device cpu``); every batch bucket must divide by N.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--target-rms", type=float, default=0.1,
                     help="default loudness calibration; 0 = raw model level")
     ap.add_argument("--mesh", type=int, default=1,
-                    help="devices per bucket (only 1 is ported)")
+                    help="devices to shard each bucket's batch over")
     ap.add_argument("--bf16", action="store_true",
                     help="bfloat16 activations in both generators")
     ap.add_argument("--coalesce-ms", type=float, default=0.0,
@@ -66,10 +67,6 @@ def main(argv: list[str] | None = None) -> None:
     ap = parser()
     args = ap.parse_args(argv)
     sc = serve_config(args)
-    if sc.mesh_devices > 1:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: serving over several devices is not ported "
-            "yet (ROADMAP.md Queue 1, data parallelism); run with --mesh 1")
     dev = cli_device(ap, args.device)
     print(f"loading {args.composer} + {args.vocoder}; warming "
           f"{len(sc.batch_buckets) * len(sc.patch_buckets)} shape buckets...",

@@ -10,25 +10,40 @@ run directory. The flags, their defaults and the run directory are the JAX
 script's (``scripts/_run.py``). The patches are the plain front-end's
 log-mel, normalized, computed on the device on the main thread; the worker
 thread of ``--prefetch`` only samples audio on the host. Runs on ``cuda``
-unless ``--device cpu`` is given; ``--mesh > 1`` is not ported yet.
+unless ``--device cpu`` is given.
+
+``--mesh N`` trains data-parallel over N ranks (``scripts/_run.py`` says
+how they start; ``--batch`` divides by N): by default the reference's
+per-device step with per-rank latents (``--dp shard_map``), or the step
+on the global batch (``--dp jit``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import sys
 import time
 
+import numpy as np
 import torch
 
 from music_synthesis_tpu_torch.config import TINY, PipelineConfig, TrainConfig
 from music_synthesis_tpu_torch.ops.frontend import log_mel_for_vocoder
+from music_synthesis_tpu_torch.parallel.dp import make_dp_stage1_step
+from music_synthesis_tpu_torch.parallel.mesh import shard_batch
+from music_synthesis_tpu_torch.parallel.shard_map_dp import (
+    make_shardmap_stage1_step,
+)
 from music_synthesis_tpu_torch.scripts._run import (
     Run,
-    device_from_args,
+    check_mesh,
     host_batches,
     host_tensor,
     prepare_run,
+    ranks,
+    start_ranks,
 )
 from music_synthesis_tpu_torch.train import stage1
 
@@ -125,12 +140,21 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
 
 def main(argv: list[str] | None = None) -> None:
     ap = parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    dev = device_from_args(ap, args)
+    check_mesh(ap, args)
     cfg = config_from_args(args)
     if cfg.specgan.n_mels != cfg.frontend.n_mels:
         ap.error(f"specgan.n_mels ({cfg.specgan.n_mels}) != frontend.n_mels "
                  f"({cfg.frontend.n_mels}); real patches would not fit")
+    if start_ranks(ap, args, main, argv):
+        return
+    with ranks(ap, args) as (dev, group):
+        _train(args, cfg, dev, group)
+
+
+def _train(args, cfg: PipelineConfig, dev: torch.device, group) -> None:
+    """The training loop of one process (one rank under ``--mesh``)."""
     # A mel patch needs n_frames * hop samples of audio.
     seg = cfg.specgan.n_frames * cfg.frontend.hop_length
     cfg, ds, outdir = prepare_run(args, cfg, seg, dev)
@@ -140,13 +164,21 @@ def main(argv: list[str] | None = None) -> None:
             mel = log_mel_for_vocoder(wav, cfg.frontend)
             return (mel - cfg.mel_scaler.shift) / cfg.mel_scaler.scale
 
-    run = Run(args, outdir, guard_keys=("d_loss", "g_adv"))
+    run = Run(args, outdir, guard_keys=("d_loss", "g_adv"), group=group)
     state = run.resume(stage1.make_train_state(cfg, cfg.train.seed, dev), dev)
     start_step = state.step
+    if group is None:
+        step_fn = functools.partial(stage1.train_step, cfg)
+    elif args.dp == "shard_map":
+        step_fn = make_shardmap_stage1_step(cfg, group)
+    else:
+        step_fn = make_dp_stage1_step(cfg, group)
 
     def make_batch(step: int) -> torch.Tensor:
-        return host_tensor(ds.sample_batch(step, cfg.train.batch_size,
-                                           cfg.train.seed), dev)
+        # Under --mesh every rank samples the global batch and keeps its
+        # rows.
+        return host_tensor(np.ascontiguousarray(shard_batch(ds.sample_batch(
+            step, cfg.train.batch_size, cfg.train.seed), group)), dev)
 
     step = None
     t_start = time.perf_counter()
@@ -155,7 +187,7 @@ def main(argv: list[str] | None = None) -> None:
                        args.prefetch) as batches):
         for step, wav in batches:
             mel = patches(wav.to(dev, non_blocking=True))
-            state, metrics = stage1.train_step(cfg, state, mel)
+            state, metrics = step_fn(state, mel)
             if run.after(step, step == start_step, state, metrics):
                 break
     run.finish(state, start_step, step, t_start, dev)

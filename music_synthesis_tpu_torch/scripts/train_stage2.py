@@ -13,14 +13,24 @@ when there is one). ``--steps-per-dispatch K`` runs K steps per call of
 With ``--pallas-frontend`` the conditioning (in every step and every
 audio dump) runs through the fused log-mel kernel (``ops/logmel.py``): on
 the card it builds and launches, or the run fails; there is no fallback to
-the plain front-end. Runs on ``cuda`` unless ``--device cpu`` is given;
-``--mesh > 1`` is not ported yet.
+the plain front-end. Runs on ``cuda`` unless ``--device cpu`` is given.
+
+``--mesh N`` trains data-parallel over N ranks (``scripts/_run.py`` says
+how they start), with the JAX script's checks: ``--batch`` divides by N,
+``--pallas-frontend`` needs ``--dp shard_map`` (the default; the kernel
+runs per rank), and so does ``--steps-per-dispatch``:
+
+    python -m music_synthesis_tpu_torch.scripts.train_stage2 --mesh 8 ...
+    python -m music_synthesis_tpu_torch.scripts.train_stage2 --mesh 2 \
+        --device cpu --preset tiny --batch 2 --segment 2048 --steps 2
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
+import sys
 import time
 
 import numpy as np
@@ -28,12 +38,21 @@ import torch
 from torch.func import functional_call
 
 from music_synthesis_tpu_torch.config import TINY, PipelineConfig, TrainConfig
+from music_synthesis_tpu_torch.parallel.dp import make_dp_stage2_step
+from music_synthesis_tpu_torch.parallel.mesh import shard_batch, shard_chunk
+from music_synthesis_tpu_torch.parallel.shard_map_dp import (
+    make_shardmap_stage2_many,
+    make_shardmap_stage2_step,
+)
 from music_synthesis_tpu_torch.scripts._run import (
     Run,
-    device_from_args,
+    check_mesh,
     host_batches,
     host_tensor,
+    is_main,
     prepare_run,
+    ranks,
+    start_ranks,
 )
 from music_synthesis_tpu_torch.train import stage2
 from music_synthesis_tpu_torch.utils.wav import write_wav
@@ -177,8 +196,9 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
 
 def main(argv: list[str] | None = None) -> None:
     ap = parser()
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
-    dev = device_from_args(ap, args)
+    check_mesh(ap, args)
     cfg = config_from_args(args)
     if cfg.frontend.n_mels != cfg.vocoder.n_mels:
         ap.error(f"frontend.n_mels ({cfg.frontend.n_mels}) != vocoder.n_mels "
@@ -186,16 +206,40 @@ def main(argv: list[str] | None = None) -> None:
     if cfg.vocoder.hop_length != cfg.frontend.hop_length:
         ap.error(f"vocoder total upsampling ({cfg.vocoder.hop_length}) must "
                  f"equal the front-end hop ({cfg.frontend.hop_length})")
+    if args.pallas_frontend and args.mesh > 1 and args.dp == "jit":
+        sys.exit("--pallas-frontend with --mesh > 1 requires --dp shard_map "
+                 "(pallas_call has no SPMD partitioning rule under jit "
+                 "sharding; the shard_map step runs the kernel per-device)")
     k = max(1, args.steps_per_dispatch)
     for name, every in (("log", args.log_every), ("ckpt", args.ckpt_every),
                         ("audio", args.audio_every)):
         if every % k:
             ap.error(f"--{name}-every must be a multiple of "
                      "--steps-per-dispatch")
+    if k > 1 and args.mesh > 1 and args.dp != "shard_map":
+        ap.error("--steps-per-dispatch with --mesh needs --dp shard_map")
+    if start_ranks(ap, args, main, argv):
+        return
+    with ranks(ap, args) as (dev, group):
+        _train(ap, args, cfg, dev, group)
+
+
+def _train(ap, args, cfg: PipelineConfig, dev: torch.device, group) -> None:
+    """The training loop of one process (one rank under ``--mesh``)."""
+    k = max(1, args.steps_per_dispatch)
     cfg, ds, outdir = prepare_run(args, cfg, cfg.train.segment_length, dev)
 
-    run = Run(args, outdir, guard_keys=("d_loss", "g_adv", "g_stft"))
+    run = Run(args, outdir, guard_keys=("d_loss", "g_adv", "g_stft"),
+              group=group)
     state = run.resume(stage2.make_train_state(cfg, cfg.train.seed, dev), dev)
+    if group is None:
+        step_one = functools.partial(stage2.train_step, cfg)
+        step_many = functools.partial(stage2.train_step_many, cfg)
+    elif args.dp == "shard_map":
+        step_one = make_shardmap_stage2_step(cfg, group)
+        step_many = make_shardmap_stage2_many(cfg, group)
+    else:
+        step_one = make_dp_stage2_step(cfg, group)
     start_step = state.step
     if start_step % k or args.steps % k:
         ap.error("start and total steps must be multiples of "
@@ -219,13 +263,16 @@ def main(argv: list[str] | None = None) -> None:
     def make_batch(cs: int) -> torch.Tensor:
         # One [K, B, L] chunk holds the batches a one-step loop would draw,
         # so resuming replays the same data whatever K is.
+        # Under --mesh every rank samples the global batch and keeps its
+        # rows.
         b = cfg.train.batch_size
         if k == 1:
-            arr = ds.sample_batch(cs, b, cfg.train.seed)
+            arr = shard_batch(ds.sample_batch(cs, b, cfg.train.seed), group)
         else:
-            arr = np.stack([ds.sample_batch(cs + i, b, cfg.train.seed)
-                            for i in range(k)])
-        return host_tensor(arr, dev)
+            arr = shard_chunk(np.stack([
+                ds.sample_batch(cs + i, b, cfg.train.seed)
+                for i in range(k)]), group)
+        return host_tensor(np.ascontiguousarray(arr), dev)
 
     step = None
     t_start = time.perf_counter()
@@ -237,13 +284,13 @@ def main(argv: list[str] | None = None) -> None:
             cs = start_step + ci * k
             wav = wav.to(dev, non_blocking=True)
             if k == 1:
-                state, metrics = stage2.train_step(cfg, state, wav)
+                state, metrics = step_one(state, wav)
             else:
-                state, metrics = stage2.train_step_many(cfg, state, wav)
+                state, metrics = step_many(state, wav)
             step = cs + k - 1  # the last step of this dispatch
             if run.after(step, cs == start_step, state, metrics):
                 break
-            if (step + 1) % args.audio_every == 0:
+            if (step + 1) % args.audio_every == 0 and is_main():
                 dump_audio(step)
     run.finish(state, start_step, step, t_start, dev)
 

@@ -29,8 +29,16 @@ device and answers ``synth(seconds, seed, n_clips)`` through
 
 Latents come from a ``torch.Generator`` seeded per request on the CPU, so a
 seed gives the same audio on any device but not the JAX server's audio
-(threefry and PyTorch's generator differ). Serving over several devices
-(``mesh_devices > 1``) is not ported yet.
+(threefry and PyTorch's generator differ).
+
+Serving over several devices (``mesh_devices = N > 1``), as the reference
+shards each bucket's batch over a mesh: every batch bucket must divide by
+N; composer and vocoder are replicated once at load on ``cuda:0`` ..
+``cuda:N-1`` (raising with the reason when fewer cards are visible; a
+caller may name the devices, and may repeat one), or N times on the CPU;
+each bucket's batch is split into N shards, each run on its device from
+the worker thread, and the audio is gathered on the first device. Streams
+run on the first device.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from music_synthesis_tpu_torch.infer.generate import (
     generate_long_refined,
 )
 from music_synthesis_tpu_torch.infer.stream import StreamingSynth
+from music_synthesis_tpu_torch.parallel.mesh import device_list
 from music_synthesis_tpu_torch.utils.wav import write_wav
 
 __all__ = ["ServeConfig", "SynthService", "latent_rows", "make_server",
@@ -93,7 +102,8 @@ class ServeConfig:
     # Output loudness calibration (RMS per clip); 0 disables.
     target_rms: float = 0.1
     max_clips_per_request: int = 16
-    # Devices to shard each bucket's batch over; only 1 is ported.
+    # Devices to shard each bucket's batch over; every batch bucket must
+    # divide by it.
     mesh_devices: int = 1
     # Activation dtype of both generators ("float32" | "bfloat16").
     compute_dtype: str = "float32"
@@ -115,18 +125,23 @@ def _load_entry(name: str, kind: str, root) -> zoo.PretrainedEntry:
 
 
 class SynthService:
-    """Loads zoo models onto ``device`` and serves synthesis calls."""
+    """Loads zoo models onto ``device`` (or the ``mesh_devices`` devices,
+    ``devices`` if given) and serves synthesis calls."""
 
     def __init__(self, serve_cfg: ServeConfig = ServeConfig(),
                  base_cfg: PipelineConfig = E2E_INFERENCE, *,
                  device: str | torch.device | None = None,
-                 warmup: bool = True):
-        if serve_cfg.mesh_devices > 1:
-            raise NotImplementedError(
-                f"mesh_devices={serve_cfg.mesh_devices}: serving over several "
-                "devices is not ported yet (ROADMAP.md Queue 1, data "
-                "parallelism); use mesh_devices=1")
-        self.device = resolve_device(device)
+                 devices=None, warmup: bool = True):
+        n_dev = serve_cfg.mesh_devices
+        if n_dev > 1:
+            bad = [b for b in serve_cfg.batch_buckets if b % n_dev]
+            if bad:
+                raise ValueError(f"batch buckets {bad} do not divide over "
+                                 f"{n_dev} mesh devices")
+        self.devices = (device_list(n_dev, devices=devices)
+                        if devices is not None
+                        else device_list(n_dev, resolve_device(device)))
+        self.device = self.devices[0]
         self.serve_cfg = serve_cfg
         self.base_cfg = base_cfg  # kept for POST /reload
         root = serve_cfg.zoo_root
@@ -152,8 +167,11 @@ class SynthService:
         self.cfg = cfg
         self.composer_name, self.vocoder_name = composer.name, vocoder.name
         self._cards = {"composer": composer.card, "vocoder": vocoder.card}
-        self.composer = composer.model(self.device, serve_cfg.compute_dtype)
-        self.vocoder = vocoder.model(self.device, serve_cfg.compute_dtype)
+        # One replica of each model per device (the first serves streams).
+        self._replicas = [(composer.model(d, serve_cfg.compute_dtype),
+                           vocoder.model(d, serve_cfg.compute_dtype))
+                          for d in self.devices]
+        self.composer, self.vocoder = self._replicas[0]
         self._worker = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="msynth-device")
         self._m_lock = threading.Lock()
@@ -215,15 +233,23 @@ class SynthService:
 
     @torch.inference_mode()
     def _generate(self, z: torch.Tensor) -> np.ndarray:
+        """The batch split evenly over the devices, each shard run on its
+        replica, the audio gathered on the first device."""
         sc = self.serve_cfg
-        z = z.to(self.device)
-        if sc.gl_refine > 0:
-            wav = generate_long_refined(self.cfg, self.composer, self.vocoder,
-                                        z, sc.crossfade_frames, sc.gl_refine)
-        else:
-            wav = generate_long(self.cfg, self.composer, self.vocoder, z,
-                                sc.crossfade_frames)
-        return wav.float().cpu().numpy()
+        outs = []
+        for (composer, vocoder), dev, zs in zip(
+                self._replicas, self.devices,
+                z.chunk(len(self.devices))):
+            zs = zs.to(dev)
+            if sc.gl_refine > 0:
+                wav = generate_long_refined(self.cfg, composer, vocoder, zs,
+                                            sc.crossfade_frames, sc.gl_refine)
+            else:
+                wav = generate_long(self.cfg, composer, vocoder, zs,
+                                    sc.crossfade_frames)
+            outs.append(wav.float())
+        wav = torch.cat([w.to(self.device) for w in outs])
+        return wav.cpu().numpy()
 
     def _z_rows(self, seed: int, n_clips: int, n: int) -> torch.Tensor:
         """Per-request latent rows ``[n_clips, n, Z]`` (CPU, fp32)."""
@@ -576,7 +602,7 @@ class _Handler(BaseHTTPRequestHandler):
                 vocoder=req.get("vocoder", old.serve_cfg.vocoder),
             )
             new = SynthService(sc, base_cfg=old.base_cfg, device=old.device,
-                               warmup=True)
+                               devices=old.devices, warmup=True)
         except Exception as e:  # keep serving the old models on any failure
             old.count_error()
             self._send_json(400, {"error": str(e)})

@@ -12,6 +12,13 @@ storage called with the state's parameters (``functional_call``), one
 ``torch.autograd.grad`` per player, one G forward for both updates. Each
 step draws the latents, then (with instance noise) three normals, from the
 state's generator; ``z=`` and ``noise=`` replace those draws.
+
+Data parallelism (``group``, ``dp``) is ``train/stage2.py``'s: gradients
+and metrics averaged over the ranks, the draws of the global batch kept by
+rows (``dp="jit"``) or drawn per rank (``"shard_map"``, latents and noise
+from the rank's own generator, as the reference folds the axis index into
+both keys). The flux profiles are averaged over the ranks before the L1
+(``parallel.mesh.AllReduce``), so the flux term is the global batch's.
 """
 
 from __future__ import annotations
@@ -34,10 +41,17 @@ from music_synthesis_tpu_torch.models.specgan import (
     SpectrogramDiscriminator,
     SpectrogramGenerator,
 )
+from music_synthesis_tpu_torch.parallel.mesh import (
+    AllReduce,
+    all_reduce_mean,
+    world_size,
+)
 from music_synthesis_tpu_torch.train.stage2 import (
+    Draws,
     _copy_generator,
     _floats,
     noise_scale,
+    reduce_metrics,
 )
 from music_synthesis_tpu_torch.train.state import (
     GANState,
@@ -45,8 +59,8 @@ from music_synthesis_tpu_torch.train.state import (
     make_optimizer,
 )
 
-__all__ = ["make_models", "make_train_state", "draw_latents",
-           "forward_and_loss", "train_step"]
+__all__ = ["make_models", "make_train_state", "forward_and_loss",
+           "train_step"]
 
 
 def make_models(cfg: PipelineConfig,
@@ -84,13 +98,6 @@ def make_train_state(cfg: PipelineConfig, seed: int | None = None,
                if t.ema_decay > 0 else None))
 
 
-def draw_latents(rng: torch.Generator, n: int,
-                 cfg: PipelineConfig) -> torch.Tensor:
-    """``z [n, latent_dim]`` (fp32) drawn from ``rng`` on its device."""
-    return torch.randn((n, cfg.specgan.latent_dim), generator=rng,
-                       device=rng.device)
-
-
 def _device(state: GANState) -> torch.device:
     return next(iter(state.g_params.values())).device
 
@@ -116,7 +123,8 @@ def _flux_profile(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(torch.diff(x, dim=1)), dim=(0, 1))
 
 
-def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise):
+def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
+          group=None, dp: str = "shard_map"):
     """One D and one G update; the metrics stay tensors on the device."""
     t = cfg.train
     gen, disc = _modules(cfg)
@@ -125,8 +133,9 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise):
     real = torch.as_tensor(real_mel, dtype=torch.float32, device=dev)
 
     rng = _copy_generator(state.rng)
+    draws = Draws(rng, group, dp)
     if z is None:
-        z = draw_latents(rng, real.shape[0], cfg)
+        z = draws.normal((real.shape[0], cfg.specgan.latent_dim))
     z = torch.as_tensor(z, dtype=torch.float32, device=dev)
     g_names = list(state.g_params)
     g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
@@ -138,8 +147,7 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise):
     d_real_in, d_fake_in, g_noise = real, fake_sg, None
     if t.d_input_noise > 0:
         if noise is None:
-            noise = [torch.randn(real.shape, generator=rng, device=dev)
-                     for _ in range(3)]
+            noise = [draws.normal(real.shape) for _ in range(3)]
         n1, n2, n3 = (torch.as_tensor(n, dtype=torch.float32, device=dev)
                       for n in noise)
         s = noise_scale(cfg, state.step)
@@ -164,6 +172,8 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise):
         d_loss = d_loss + r1
         metrics["d_r1"] = r1.detach()
     d_grads = list(torch.autograd.grad(d_loss, d_leaves))
+    if group is not None:
+        d_grads = all_reduce_mean(d_grads, group)
     d_grad_norm = global_norm(d_grads)
     d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)), state.d_opt)
     d_update_norm = global_norm(d_updates)
@@ -185,11 +195,16 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise):
     total = adv + t.lambda_feature_matching * fm
     aux = {"g_adv": adv, "g_fm": fm}
     if t.lambda_flux > 0:
-        flux = torch.mean(torch.abs(_flux_profile(fake)
-                                    - _flux_profile(real)))
+        pf, pr = _flux_profile(fake), _flux_profile(real)
+        if group is not None:
+            pf, pr = AllReduce.apply(torch.stack([pf, pr]), group,
+                                     1.0 / world_size(group))
+        flux = torch.mean(torch.abs(pf - pr))
         total = total + t.lambda_flux * flux
         aux["g_flux"] = flux
     g_grads = list(torch.autograd.grad(total, g_leaves))
+    if group is not None:
+        g_grads = all_reduce_mean(g_grads, group)
     g_grad_norm = global_norm(g_grads)
     g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)), state.g_opt)
     g_update_norm = global_norm(g_updates)
@@ -208,24 +223,31 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise):
                          d_params=d_params, g_opt=g_opt, d_opt=d_opt,
                          rng=rng, g_ema=g_ema)
     # Amplitude health in the normalized mel space, on the D step's fake.
-    rms_ratio = torch.sqrt((torch.mean(torch.square(fake_sg)) + 1e-12)
-                           / (torch.mean(torch.square(real)) + 1e-12))
-    out = {"d_loss": d_loss.detach(), "g_loss": total.detach(),
-           "g_rms_ratio": rms_ratio,
-           **{k: v.detach() for k, v in aux.items()}, **metrics,
+    means = reduce_metrics(
+        {"d_loss": d_loss.detach(), "g_loss": total.detach(),
+         **{k: v.detach() for k, v in aux.items()}, **metrics},
+        torch.mean(torch.square(fake_sg)), torch.mean(torch.square(real)),
+        group, dp)
+    out = {"d_loss": means["d_loss"], "g_loss": means["g_loss"],
+           "g_rms_ratio": means["g_rms_ratio"],
+           **{k: means[k] for k in aux}, **{k: means[k] for k in metrics},
            "d_grad_norm": d_grad_norm, "g_grad_norm": g_grad_norm,
            "d_update_norm": d_update_norm, "g_update_norm": g_update_norm}
     return new_state, out
 
 
 def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
-               noise=None) -> tuple[GANState, dict[str, float]]:
+               noise=None, group=None, dp: str = "shard_map"
+               ) -> tuple[GANState, dict[str, float]]:
     """One alternating D/G update on normalized log-mel ``[B, T, M]``.
 
     ``z``: the latents ``[B, latent_dim]``, in place of a draw from
     ``state.rng``. ``noise``: the three standard-normal ``[B, T, M]``
     instance-noise realisations, in place of draws from ``state.rng``;
-    used only when ``cfg.train.d_input_noise > 0``.
+    used only when ``cfg.train.d_input_noise > 0``. ``group``: the process
+    group of a data-parallel step, whose rank holds ``real_mel`` (and
+    ``z``, ``noise``) as its rows of the global batch; ``dp`` says which
+    reference step it follows (``train/stage2.py``'s docstring).
     """
-    new_state, metrics = _step(cfg, state, real_mel, z, noise)
+    new_state, metrics = _step(cfg, state, real_mel, z, noise, group, dp)
     return new_state, _floats(metrics)

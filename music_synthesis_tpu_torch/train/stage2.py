@@ -19,6 +19,26 @@ The conditioning mel is computed inside the step, with no gradient: with
 ``cfg.train.use_pallas_frontend`` by the fused log-mel kernel
 (``ops/logmel.py``; the kernel on the card, its plain version on the CPU),
 otherwise by ``ops/frontend.log_mel_for_vocoder``.
+
+Data parallelism (``group``, a process group; ``parallel/dp.py`` and
+``parallel/shard_map_dp.py`` build the steps): each rank passes its own
+rows of the global batch and holds the whole state. Both gradients are
+averaged over the ranks between ``torch.autograd.grad`` and the Adam
+update (``lax.pmean`` in the reference), so clipping, the warmup gate and
+the EMA see the same gradient on every rank, and every rank ends with the
+same state; the STFT and phase losses sum their norms over the ranks
+(``losses/``). ``dp`` names the reference's step being followed:
+
+- ``"jit"`` (``make_dp_stage2_step``): the step on the global batch. Each
+  rank draws the whole global batch's instance noise from the shared
+  generator and keeps its rows, and the metrics are the global batch's,
+  so with the same batch the step equals the single-process step on the
+  concatenated batch;
+- ``"shard_map"`` (``make_shardmap_stage2_step``): the reference's
+  per-device step. Each rank draws its own noise (a generator seeded from
+  one draw of the shared one and the rank, as ``fold_in(key,
+  axis_index)``), and the metrics are the ranks' means (``g_rms_ratio``
+  the mean of the shards' ratios).
 """
 
 from __future__ import annotations
@@ -45,6 +65,7 @@ from music_synthesis_tpu_torch.models.discriminators import (
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.ops.frontend import log_mel_for_vocoder
 from music_synthesis_tpu_torch.ops.logmel import fused_log_mel_for_vocoder
+from music_synthesis_tpu_torch.parallel import mesh
 from music_synthesis_tpu_torch.train.state import (
     GANState,
     global_norm,
@@ -52,7 +73,10 @@ from music_synthesis_tpu_torch.train.state import (
 )
 
 __all__ = ["make_models", "conditioning_mel", "make_train_state",
-           "noise_scale", "train_step", "train_step_many"]
+           "noise_scale", "Draws", "reduce_metrics", "train_step",
+           "train_step_many"]
+
+DP_MODES = ("jit", "shard_map")
 
 
 def make_models(cfg: PipelineConfig,
@@ -119,13 +143,69 @@ def _copy_generator(rng: torch.Generator) -> torch.Generator:
     return out
 
 
+class Draws:
+    """The step's random normals, ``normal(shape)`` for this rank's
+    ``shape``: from ``rng`` in a single process; under ``group`` with
+    ``dp="jit"`` the global batch's rows from ``rng`` (the same on every
+    rank), this rank's kept; with ``dp="shard_map"`` from a generator of
+    this rank's own, seeded (at the first draw) from one draw of ``rng``
+    and the rank. ``rng`` advances alike on every rank."""
+
+    def __init__(self, rng: torch.Generator, group=None,
+                 dp: str = "shard_map"):
+        if dp not in DP_MODES:
+            raise ValueError(f"dp must be one of {DP_MODES}, got {dp!r}")
+        self.rng, self.group, self.dp = rng, group, dp
+        self._own = None
+
+    def normal(self, shape) -> torch.Tensor:
+        dev = self.rng.device
+        if self.group is None:
+            return torch.randn(shape, generator=self.rng, device=dev)
+        if self.dp == "jit":
+            n = mesh.world_size(self.group)
+            full = torch.randn((shape[0] * n, *shape[1:]),
+                               generator=self.rng, device=dev)
+            return mesh.shard_batch(full, self.group)
+        if self._own is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.rng,
+                                     device=dev))
+            r = mesh.rank(self.group) + 1
+            self._own = torch.Generator(device=dev).manual_seed(
+                (seed + 0x9E3779B97F4A7C15 * r) % 2 ** 63)
+        return torch.randn(shape, generator=self._own, device=dev)
+
+
+def reduce_metrics(means: dict, fake2: torch.Tensor, real2: torch.Tensor,
+                   group, dp: str) -> dict:
+    """``means`` (the losses, each a mean over this rank's rows) and
+    ``g_rms_ratio`` from the mean squares of the fake and real batches,
+    averaged over the ranks of ``group``: the global batch's ratio for
+    ``dp="jit"``, the mean of the shards' ratios for ``"shard_map"``."""
+    def ratio(f2, r2):
+        return torch.sqrt((f2 + 1e-12) / (r2 + 1e-12))
+
+    if group is None:
+        return {**means, "g_rms_ratio": ratio(fake2, real2)}
+    keys = list(means)
+    vals = list(means.values())
+    if dp == "jit":
+        *vals, fake2, real2 = mesh.all_reduce_mean(vals + [fake2, real2],
+                                                   group)
+        out = dict(zip(keys, vals))
+        out["g_rms_ratio"] = ratio(fake2, real2)
+        return out
+    *vals, rms = mesh.all_reduce_mean(vals + [ratio(fake2, real2)], group)
+    return {**dict(zip(keys, vals)), "g_rms_ratio": rms}
+
+
 def _frame_rms(x: torch.Tensor, hop: int) -> torch.Tensor:
     f = x[:, : (x.shape[1] // hop) * hop].reshape(x.shape[0], -1, hop)
     return torch.sqrt(torch.mean(torch.square(f), -1) + 1e-8)
 
 
 def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
-          noise, precision: str):
+          noise, precision: str, group=None, dp: str = "shard_map"):
     """One D and one G update; the metrics stay tensors on the device."""
     t = cfg.train
     gen, disc = _modules(cfg)
@@ -149,11 +229,11 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     # Instance noise: three normals, the third reused (with gradients) on
     # the G side. ``noise`` replaces the draw from the state's generator.
     rng = _copy_generator(state.rng)
+    draws = Draws(rng, group, dp)
     d_real_in, d_fake_in, g_noise = wav, fake_sg, None
     if t.d_input_noise > 0:
         if noise is None:
-            noise = [torch.randn(wav.shape, generator=rng, device=dev)
-                     for _ in range(3)]
+            noise = [draws.normal(wav.shape) for _ in range(3)]
         n1, n2, n3 = (torch.as_tensor(n, dtype=torch.float32, device=dev)
                       for n in noise)
         s = noise_scale(cfg, state.step)
@@ -187,6 +267,8 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
         d_loss = d_loss + r1
         metrics["d_r1"] = r1.detach()
     d_grads = list(torch.autograd.grad(d_loss, d_leaves))
+    if group is not None:
+        d_grads = mesh.all_reduce_mean(d_grads, group)
     d_grad_norm = global_norm(d_grads)
     # Warmup gate: D's update and Adam state stay as they are.
     adv_on = t.g_warmup_steps <= 0 or state.step >= t.g_warmup_steps
@@ -213,7 +295,7 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
             _, real_feats_g = functional_call(disc, d_params, (wav,))
     adv = g_loss_fn(t.gan_loss)(fake_logits)
     fm = feature_matching_loss(real_feats_g, fake_feats)
-    stft = multires_stft_loss(fake, wav, cfg.stft_loss)
+    stft = multires_stft_loss(fake, wav, cfg.stft_loss, group)
     adv_w = 1.0 if adv_on else 0.0
     total = (adv_w * (adv + t.lambda_feature_matching * fm)
              + t.lambda_stft * stft)
@@ -225,10 +307,13 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
         total = total + t.lambda_energy * energy
         aux["g_energy"] = energy
     if t.lambda_phase > 0:
-        ph = phase_coherence_loss(fake, wav, t.phase_n_fft, t.phase_hop)
+        ph = phase_coherence_loss(fake, wav, t.phase_n_fft, t.phase_hop,
+                                  group=group)
         total = total + t.lambda_phase * ph
         aux["g_phase"] = ph
     g_grads = list(torch.autograd.grad(total, g_leaves))
+    if group is not None:
+        g_grads = mesh.all_reduce_mean(g_grads, group)
     g_grad_norm = global_norm(g_grads)
     g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)), state.g_opt)
     g_update_norm = global_norm(g_updates)
@@ -246,11 +331,14 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     new_state = GANState(step=state.step + 1, g_params=g_params,
                          d_params=d_params, g_opt=g_opt, d_opt=d_opt,
                          rng=rng, g_ema=g_ema)
-    rms_ratio = torch.sqrt((torch.mean(torch.square(fake_sg)) + 1e-12)
-                           / (torch.mean(torch.square(wav)) + 1e-12))
-    out = {"d_loss": d_loss.detach(), "g_loss": total.detach(),
-           "g_rms_ratio": rms_ratio,
-           **{k: v.detach() for k, v in aux.items()}, **metrics,
+    means = reduce_metrics(
+        {"d_loss": d_loss.detach(), "g_loss": total.detach(),
+         **{k: v.detach() for k, v in aux.items()}, **metrics},
+        torch.mean(torch.square(fake_sg)), torch.mean(torch.square(wav)),
+        group, dp)
+    out = {"d_loss": means["d_loss"], "g_loss": means["g_loss"],
+           "g_rms_ratio": means["g_rms_ratio"],
+           **{k: means[k] for k in aux}, **{k: means[k] for k in metrics},
            "d_grad_norm": d_grad_norm, "g_grad_norm": g_grad_norm,
            "d_update_norm": d_update_norm, "g_update_norm": g_update_norm}
     return new_state, out
@@ -263,26 +351,30 @@ def _floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
 
 
 def train_step(cfg: PipelineConfig, state: GANState, wav,
-               noise=None, precision: str = "fast"
-               ) -> tuple[GANState, dict[str, float]]:
+               noise=None, precision: str = "fast", group=None,
+               dp: str = "shard_map") -> tuple[GANState, dict[str, float]]:
     """One alternating D/G update on a waveform batch ``[B, L]``.
 
     ``noise``: the three standard-normal ``[B, L]`` realisations of the
     instance noise (tensors or arrays), in place of draws from
     ``state.rng``; used only when ``cfg.train.d_input_noise > 0``.
     ``precision``: the fused log-mel kernel's mode ("fast" or "exact").
+    ``group``: the process group of a data-parallel step, whose rank holds
+    ``wav`` (and ``noise``) as its rows of the global batch; ``dp`` says
+    which reference step it follows (the module's docstring).
     """
-    new_state, metrics = _step(cfg, state, wav, noise, precision)
+    new_state, metrics = _step(cfg, state, wav, noise, precision, group, dp)
     return new_state, _floats(metrics)
 
 
-def train_step_many(cfg: PipelineConfig, state: GANState, wavs
+def train_step_many(cfg: PipelineConfig, state: GANState, wavs,
+                    group=None, dp: str = "shard_map"
                     ) -> tuple[GANState, dict[str, float]]:
     """``len(wavs)`` chained steps over ``wavs [K, B, L]``, the same as K
     ``train_step`` calls; returns the last step's metrics."""
     metrics = None
     for wav in wavs:
-        state, metrics = _step(cfg, state, wav, None, "fast")
+        state, metrics = _step(cfg, state, wav, None, "fast", group, dp)
     if metrics is None:
         raise ValueError("train_step_many needs at least one batch")
     return state, _floats(metrics)

@@ -14,8 +14,15 @@ against the JAX scripts and the JAX package's zoo.
   the checkpoint's EMA weights, equal arrays, and JAX's generator on it
   matches the port's (1e-5 relative to the output's peak); the port's
   ``SynthService`` serves the exported pair.
-- Without ``--device cpu`` and without a card each CLI exits non-zero, and
-  ``--mesh > 1`` is refused.
+- Without ``--device cpu`` and without a card each CLI exits non-zero.
+- ``--mesh 2 --device cpu`` (two gloo ranks started by the CLI): the
+  stage-1 CLI with ``--dp jit`` and the flagship's flags, and
+  ``train_two_stage`` (both training CLIs with the default ``--dp
+  shard_map``, then ``generate`` with a report), write the JAX scripts'
+  run files for the same flags (``mesh_shape`` [2]; mel statistics within
+  1e-5), the flagship's metric keys, and one checkpoint, from rank 0. The
+  JAX scripts' refusals hold: a batch that does not divide by ``--mesh``,
+  ``--pallas-frontend`` or ``--steps-per-dispatch`` with ``--dp jit``.
 - Every module of the port imports with ``jax`` and ``music_synthesis_tpu``
   made unimportable.
 """
@@ -44,6 +51,7 @@ from music_synthesis_tpu_torch.scripts import (
     export_zoo,
     train_stage1,
     train_stage2,
+    train_two_stage,
 )
 from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
 from music_synthesis_tpu_torch.train.checkpoint import CheckpointManager
@@ -123,29 +131,92 @@ def _jax_main(name, argv, monkeypatch):
         mod.main()
 
 
+def _assert_run_files(port, want_dir, stage):
+    """``port``'s config.json (and mel_stats.json) against the JAX script's
+    in ``want_dir``, and its metrics.jsonl keys against the flagship run's
+    (the JAX logger's order)."""
+    want = json.loads((want_dir / "config.json").read_text())
+    got = json.loads((port / "config.json").read_text())
+    if (want_dir / "mel_stats.json").exists():
+        want_stats = json.loads((want_dir / "mel_stats.json").read_text())
+        got_stats = json.loads((port / "mel_stats.json").read_text())
+        assert want.pop("mel_scaler") == want_stats
+        assert got.pop("mel_scaler") == got_stats
+        assert got_stats.keys() == want_stats.keys()
+        for k in want_stats:
+            assert abs(got_stats[k] - want_stats[k]) <= 1e-5, k
+    assert got == want  # every other section, field for field
+    line = (REPO / "runs" / FLAGSHIP_RUN[stage] / "metrics.jsonl").open().readline()
+    keys = set(json.loads(line))
+    lines = (port / "metrics.jsonl").read_text().splitlines()
+    assert lines and all(set(json.loads(x)) <= keys for x in lines)
+    return lines
+
+
 @pytest.mark.parametrize("stage", [1, 2])
 def test_run_files_match_the_jax_script(stage, runs, corpus, tmp_path,
                                         monkeypatch):
     _jax_main(f"train_stage{stage}", FLAGS[stage] + [
         "--corpus", str(corpus), "--steps", "4", "--outdir", str(tmp_path)],
         monkeypatch)
-    port = runs[stage]["straight"]
-    want = json.loads((tmp_path / "config.json").read_text())
-    got = json.loads((port / "config.json").read_text())
-    want_stats = json.loads((tmp_path / "mel_stats.json").read_text())
-    got_stats = json.loads((port / "mel_stats.json").read_text())
-    assert want.pop("mel_scaler") == want_stats
-    assert got.pop("mel_scaler") == got_stats
-    assert got == want  # every other section, field for field
-    assert got_stats.keys() == want_stats.keys()
-    for k in want_stats:
-        assert abs(got_stats[k] - want_stats[k]) <= 1e-5, k
+    _assert_run_files(runs[stage]["straight"], tmp_path, stage)
     # The flagship recipe's logged keys, in the JAX logger's order.
     line = (REPO / "runs" / FLAGSHIP_RUN[stage] / "metrics.jsonl").open().readline()
     keys = list(json.loads(line))
     for run in runs[stage].values():
         lines = (run / "metrics.jsonl").read_text().splitlines()
         assert lines and all(list(json.loads(x)) == keys for x in lines)
+
+
+@pytest.fixture(scope="module")
+def mesh_runs(corpus, tmp_path_factory):
+    """The stage-1 CLI over two ranks with ``--dp jit``, and
+    ``train_two_stage`` over two ranks."""
+    base = tmp_path_factory.mktemp("mesh")
+    stage1_argv = FLAGS[1] + ["--corpus", str(corpus), "--mesh", "2",
+                              "--dp", "jit", "--steps", "2", "--log-every",
+                              "1"]
+    train_stage1.main(stage1_argv + ["--device", "cpu", "--outdir",
+                                     str(base / "stage1_jit")])
+    two_argv = ["--corpus", str(corpus), "--steps", "2", "--batch", "2",
+                "--mesh", "2", "--preset", "tiny"]
+    train_two_stage.main(two_argv + ["--device", "cpu", "--outdir",
+                                     str(base / "two_stage")])
+    return {"base": base, "stage1_argv": stage1_argv, "two_argv": two_argv}
+
+
+def test_mesh_stage1_jit_run_matches_the_jax_script(mesh_runs, tmp_path,
+                                                    monkeypatch):
+    _jax_main("train_stage1", mesh_runs["stage1_argv"] + [
+        "--outdir", str(tmp_path)], monkeypatch)
+    run = mesh_runs["base"] / "stage1_jit"
+    lines = _assert_run_files(run, tmp_path, 1)
+    assert [json.loads(x)["step"] for x in lines] == [1, 2]
+    assert json.loads((run / "config.json").read_text())["train"][
+        "mesh_shape"] == [2]
+    assert CheckpointManager(run / "ckpt").all_steps() == [2]
+    assert _state(run).step == 2
+
+
+@pytest.mark.parametrize("stage", [1, 2])
+def test_train_two_stage_runs_match_the_jax_scripts(stage, mesh_runs,
+                                                    tmp_path, monkeypatch):
+    _jax_main(f"train_stage{stage}", mesh_runs["two_argv"] + [
+        "--outdir", str(tmp_path)], monkeypatch)
+    run = mesh_runs["base"] / "two_stage" / f"stage{stage}"
+    _assert_run_files(run, tmp_path, stage)
+    assert _state(run).step == 2
+
+
+def test_train_two_stage_generates_from_both_runs(mesh_runs):
+    samples = mesh_runs["base"] / "two_stage" / "samples"
+    assert sorted(p.name for p in samples.iterdir()) == [
+        "report.html"] + [f"sample_{i:03d}.wav" for i in range(4)]
+    cmds = train_two_stage.commands(
+        train_two_stage.parser().parse_args(mesh_runs["two_argv"]), "C")
+    assert [c[2].rsplit(".", 1)[1] for c in cmds] == [
+        "train_stage1", "train_stage2", "generate"]
+    assert all(c[c.index("--mesh") + 1] == "2" for c in cmds[:2])
 
 
 def _state(run):
@@ -250,11 +321,28 @@ def test_cli_without_a_card_exits_nonzero(cli, tmp_path, capsys):
     assert not list(tmp_path.iterdir())
 
 
-@pytest.mark.parametrize("cli", [train_stage1, train_stage2])
-def test_mesh_is_refused(cli, tmp_path):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        cli.main(["--mesh", "2", "--dp", "jit", "--device", "cpu",
-                  "--outdir", str(tmp_path)])
+REFUSED = {
+    "batch": (["--mesh", "2", "--batch", "3"], "must be divisible by --mesh"),
+    "pallas_jit": (["--mesh", "2", "--dp", "jit", "--pallas-frontend"],
+                   "requires --dp shard_map"),
+    "dispatch_jit": (["--mesh", "2", "--dp", "jit", "--steps-per-dispatch",
+                      "2", "--log-every", "2", "--ckpt-every", "2",
+                      "--audio-every", "2"], "needs --dp shard_map"),
+}
+
+
+@pytest.mark.parametrize("cli, case", [
+    (train_stage1, "batch"), (train_stage2, "batch"),
+    (train_stage2, "pallas_jit"), (train_stage2, "dispatch_jit")])
+def test_mesh_is_refused(cli, case, tmp_path, capsys):
+    """The JAX scripts' refusals under ``--mesh``, before any rank starts
+    or any file is written (stage 1 has no ``--pallas-frontend`` or
+    ``--steps-per-dispatch``)."""
+    argv, message = REFUSED[case]
+    with pytest.raises(SystemExit) as e:
+        cli.main(argv + ["--device", "cpu", "--outdir", str(tmp_path)])
+    assert e.value.code not in (0, None)
+    assert message in capsys.readouterr().err + str(e.value.code)
     assert not list(tmp_path.iterdir())
 
 
@@ -290,8 +378,11 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = set(out.stdout.split())
-    for cli in ("train_stage1", "train_stage2", "export_zoo"):
+    for cli in ("train_stage1", "train_stage2", "export_zoo",
+                "train_two_stage"):
         assert f"music_synthesis_tpu_torch.scripts.{cli}" in names
     for mod in ("train.stage1", "data.dataset", "data.prefetch", "data.stats",
-                "train.guard", "train.metrics", "utils.wav", "zoo"):
+                "train.guard", "train.metrics", "utils.wav", "zoo",
+                "parallel.mesh", "parallel.multihost", "parallel.dp",
+                "parallel.shard_map_dp", "parallel.seqshard"):
         assert f"music_synthesis_tpu_torch.{mod}" in names

@@ -24,7 +24,12 @@ same step with TF32 on must fail; Griffin-Lim on the card bit-identical
 with cuBLAS's TF32 switch on and off, and against the CPU as the CPU tests
 hold it against JAX (2e-4 on the refinement, 3e-2 on cold GL's spectral
 convergence); a stream on the card against ``generate_long`` on the card,
-1e-4 relative and 1e-5 absolute.
+1e-4 relative and 1e-5 absolute; the TINY stage-2 DP step over two gloo
+ranks sharing the card (``--dp jit``, 1 row each, fp32 with TF32 off, the
+"exact" kernel) against the single-process step on both rows, 5e-5
+relative on the losses and 3e-4 on the gradient norms (``TRAIN_TOL``);
+sequence-sharded vocoding over ``[cuda, cuda]`` against one call on the
+card, in the interior, 2e-3.
 """
 
 import numpy as np
@@ -341,3 +346,64 @@ def test_stream_on_the_card_matches_generate_long(cuda):
     got = np.concatenate(parts, axis=-1)
     assert got.shape == want.shape and np.abs(want).max() > 1e-2
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
+
+
+def test_dp_step_over_two_gloo_ranks_on_the_card(cuda, tmp_path):
+    import dataclasses
+
+    import torch_dp_ref
+    from music_synthesis_tpu_torch.config import TINY
+    from music_synthesis_tpu_torch.parallel import mesh
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.checkpoint import save_checkpoint
+
+    cfg = dataclasses.replace(TINY, train=dataclasses.replace(
+        TINY.train, use_pallas_frontend=True, d_input_noise=0.1,
+        r1_gamma=1.0, ema_decay=0.999, concat_disc_batch=True))
+    wav = _signal((2, 2048), seed=2).numpy()
+    rng = np.random.default_rng(3)
+    noise = [rng.standard_normal((2, 2048)).astype(np.float32)
+             for _ in range(3)]
+    st = stage2.make_train_state(cfg, seed=0, device=cuda)
+    st = dataclasses.replace(st, d_params=_he_gain_d(
+        st.d_params, 4, {"msd": 0.2, "mrd": 1e-3}), d_opt=dataclasses.replace(
+        st.d_opt, nu={k: torch.ones_like(v) for k, v in st.d_opt.nu.items()}))
+    save_checkpoint(tmp_path / "st.pt", st)
+    data = [[(wav[r:r + 1], None, [n[r:r + 1] for n in noise])]
+            for r in range(2)]
+    ranks = mesh.launch(torch_dp_ref.run_jobs, 2, ([{
+        "kind": "train", "args": dict(stage=2, cfg=cfg,
+                                      state_path=str(tmp_path / "st.pt"),
+                                      dp="jit", data=data,
+                                      device="cuda:0")}],),
+        backend="gloo", devices=["cuda:0", "cuda:0"])
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _, want = stage2.train_step(cfg, st, wav, noise=noise,
+                                    precision="exact")
+    (a,), (b,) = ranks
+    assert a["metrics"] == b["metrics"]
+    tol = {k: 5e-5 for k in ("d_loss", "g_loss", "g_rms_ratio", "g_adv",
+                             "g_fm", "g_stft", "d_r1")}
+    tol.update(d_grad_norm=3e-4, g_grad_norm=3e-4)
+    for k, rtol in tol.items():
+        got = a["metrics"][0][k]
+        assert abs(got - want[k]) <= rtol * abs(want[k]), (k, got, want[k])
+
+
+def test_seqshard_vocode_on_the_card(cuda):
+    from music_synthesis_tpu_torch.config import TINY
+    from music_synthesis_tpu_torch.models.vocoder import Vocoder
+    from music_synthesis_tpu_torch.parallel.seqshard import (
+        make_seqshard_vocode, receptive_field_frames)
+
+    voc = Vocoder(TINY.vocoder, torch.Generator().manual_seed(0)).to(cuda)
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 64, TINY.vocoder.n_mels)).astype(np.float32)).to(cuda)
+    fn = make_seqshard_vocode(voc, [cuda, cuda])
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
+            torch.inference_mode():
+        got, want = fn(mel), voc(mel)
+    assert got.is_cuda and got.shape == want.shape
+    h = receptive_field_frames(voc.cfg) + 2
+    mid = slice(h * voc.cfg.hop_length, -h * voc.cfg.hop_length)
+    assert (got[:, mid] - want[:, mid]).abs().max().item() <= 2e-3

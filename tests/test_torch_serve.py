@@ -326,10 +326,116 @@ def test_gl_refined_service(tiny_zoo, service):
 
 
 def test_mesh_serving_is_refused(tiny_zoo):
-    with pytest.raises(NotImplementedError, match="not ported"):
+    """What the reference refuses, the port refuses: a batch bucket that
+    does not divide over the devices (JAX's ValueError text); and a device
+    list the machine does not have, with the reason (no fallback)."""
+    with pytest.raises(ValueError, match=r"batch buckets \[1\] do not divide "
+                                         r"over 2 mesh devices"):
         _service(tiny_zoo, mesh_devices=2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        serve_cli.main(["--mesh", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="do not divide"):
+        JaxSynthService(JaxServeConfig(zoo_root=str(tiny_zoo),
+                                       **{**SERVE, "mesh_devices": 2}),
+                        base_cfg=jax_config.TINY, warmup=False)
+    if torch.cuda.device_count() < 2:
+        sc = ServeConfig(zoo_root=str(tiny_zoo),
+                         **{**SERVE, "batch_buckets": (2,),
+                            "mesh_devices": 2})
+        with pytest.raises(RuntimeError):
+            SynthService(sc, base_cfg=config.TINY, device="cuda",
+                         warmup=False)
+
+
+MESH = dict(batch_buckets=(8,), patch_buckets=(1,), target_rms=0.0,
+            max_clips_per_request=8, mesh_devices=8)
+
+
+@pytest.fixture(scope="module")
+def mesh_service(tiny_zoo):
+    svc = _service(tiny_zoo, **MESH)
+    yield svc
+    svc.close()
+
+
+def test_mesh_serving_matches_jax_and_one_device(mesh_service, service,
+                                                 tiny_zoo):
+    """``mesh_devices=8`` (8 CPU replicas) against the JAX service on its 8
+    virtual devices with the same latent rows (``_execute``), and against
+    the port's one-device service, clip by clip."""
+    svc = mesh_service
+    assert svc.health()["mesh_devices"] == 8 and len(svc.devices) == 8
+    jax_svc = JaxSynthService(JaxServeConfig(zoo_root=str(tiny_zoo),
+                                             **{**SERVE, **MESH}),
+                              base_cfg=jax_config.TINY, warmup=False)
+    rows = latent_rows(11, 3, 1, svc.cfg.specgan.latent_dim)
+    got = svc._execute(1, rows)
+    want = jax_svc._execute(1, rows.numpy())
+    assert got.shape == want.shape and got.shape[0] == 3
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got, service._execute(1, rows), rtol=RTOL,
+                               atol=ATOL)
+    sr = svc.cfg.frontend.sample_rate
+    wav, meta = svc.synth(svc.out_samples(1) / sr * 0.9, seed=11, n_clips=3)
+    assert meta["batch_bucket"] == 8 and wav.shape[0] == 3
+    np.testing.assert_allclose(wav, got[:, :meta["samples"]], rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_mesh_serving_composes_with_coalescing(tiny_zoo, service):
+    """``tests/test_serve.py``'s composition: mesh-sharded buckets behind
+    the coalescer give each clip its solo audio, in fewer device calls."""
+    svc = _service(tiny_zoo, **MESH, coalesce_window_ms=1000.0)
+    try:
+        sr = svc.cfg.frontend.sample_rate
+        seconds = svc.out_samples(1) / sr * 0.9
+        results = {}
+
+        def hit(seed):
+            results[seed] = svc.synth(seconds, seed=seed)[0]
+
+        threads = [threading.Thread(target=hit, args=(s,)) for s in (1, 2, 3)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert len(results) == 3 and svc.metrics()["device_calls"] < 3
+        for seed in (1, 2, 3):
+            solo, _ = service.synth(seconds, seed=seed, target_rms=0.0)
+            np.testing.assert_allclose(results[seed], solo, rtol=RTOL,
+                                       atol=ATOL)
+    finally:
+        svc.close()
+
+
+def test_serve_cli_starts_over_several_devices(tiny_zoo, monkeypatch,
+                                               capsys):
+    """``--mesh 2 --device cpu`` loads, warms and reaches the server (a
+    stand-in that stops at once)."""
+    started = {}
+
+    class Server:
+        server_address = ("127.0.0.1", 0)
+
+        def __init__(self, svc, host, port):
+            self.service = svc
+            started["health"] = svc.health()
+
+        def serve_forever(self):
+            raise KeyboardInterrupt
+
+        def server_close(self):
+            started["closed"] = True
+
+    monkeypatch.setattr(serve_cli, "make_server", Server)
+    monkeypatch.setattr(serve_cli, "SynthService",
+                        lambda sc, device: SynthService(
+                            sc, base_cfg=config.TINY, device=device))
+    serve_cli.main(["--composer", str(tiny_zoo / "composer_t"),
+                    "--vocoder", str(tiny_zoo / "vocoder_t"),
+                    "--batch-buckets", "2", "--patch-buckets", "1",
+                    "--crossfade-frames", "4", "--mesh", "2",
+                    "--device", "cpu"])
+    assert started["health"]["mesh_devices"] == 2 and started["closed"]
+    assert "serving on" in capsys.readouterr().out
 
 
 def test_serve_cli_flags():
