@@ -8,8 +8,9 @@
 Drives ``music_synthesis_tpu_torch`` through the entry points a user calls,
 at the flagship's full width with the committed zoo weights, in phases:
 
-1. build: ``csrc/logmel.cu`` with nvcc; prints the build seconds, ptxas'
-   register and spill lines, and the card's name and power limit;
+1. build: ``csrc/logmel.cu`` with nvcc and ``csrc/msynth_io.cc`` with g++,
+   started together; prints the build seconds, ptxas' register and spill
+   lines, and the card's name and power limit;
 2. kernel vs plain: the log-mel kernel against its plain PyTorch version at
    [16, 8192], [16, 88064], [4, 88064], [1, 8192] and [1, 88064] (every
    shape the main path gives it, and the 4 s batch of 16), both precision
@@ -118,16 +119,38 @@ at the flagship's full width with the committed zoo weights, in phases:
    ``[cuda:0, cuda:0]`` against one device (``FP32_TOL``), and
    ``mesh_devices=2`` refused on a one-card machine (this process
    launches the kernel once here, in the single-process stage-2 step);
-11. the ``kernels`` JSON line (printed after phase 12).
+13. the JAX package's last modules in the port (main path), in phases
+   8-12's directory: the C++ IO library (built beside the kernel in phase
+   1 by g++, its seconds printed) decodes and resamples a 30 s 44.1 kHz
+   stereo clip against scipy (interior within 2e-3, host ms of both);
+   ``extract_features`` on a 4 s clip (one launch of the kernel in
+   "exact", the plain variant at [1, 88200]; its mel and the kernel
+   within 2e-4 of the plain version in float64, times beside both
+   bounds); ``eval_stage1 --zoo specgan_flux --n 64`` on phase 10's corpus
+   (one launch, the vocoder variant at [64, 32768], held as above), then
+   its metrics on the card (fp32, cuDNN TF32 off) against the CPU with the
+   same latents (``EVAL1_CPU_GAPS`` x ``EVAL1_GAP_FACTOR``); ``parity`` on
+   phase 10's eval WAVs (real against itself 0, against the resynthesis
+   and the refinement > 0); ``average_ckpts`` over phase 8's stage-2
+   checkpoints (the float64 mean, exactly) and ``eval_checkpoint --run``
+   on the average; ``deploy``: the ``vocoder_istft`` artifact (64 frames)
+   and the ``specgan_flux`` + ``vocoder_istft`` pipeline, symbolic batch,
+   in fp32, for ``cuda,cpu``, saved, read, loaded and run at batch 1 and 4
+   on the card and 1 on the CPU against the live modules (``FP32_TOL``,
+   cuDNN TF32 off), with file MB, export s and call ms against the live
+   module's; and one flagship stage-2 step and one stage-1 step under
+   ``utils.profiling.trace``: every JAX region name of the config's step
+   in the trace, and host ms, device ms and launches per region;
+11. the ``kernels`` JSON line (printed after phase 13).
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
 and again around each of phases 6, 7, 8, 9 and 10 (and around phase 10's
-``eval_checkpoint --run``); phase 12's ranks read theirs around their
-steps.
+``eval_checkpoint --run``) and around phase 13's ``extract_features`` and
+``eval_stage1``; phase 12's ranks read theirs around their steps.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA card; exits non-zero without one. Starts no process other than
-nvcc, nvidia-smi and phase 12's ranks (which it joins: a rank that fails
+nvcc, g++, nvidia-smi and phase 12's ranks (which it joins: a rank that fails
 stops the others and fails the phase); phase 9's server and coalescer
 threads are shut down before it ends, and the CLIs' batch-prefetch threads
 end with each CLI.
@@ -337,6 +360,8 @@ def profile_launches(fn, calls: int = 3) -> dict:
     the window is longer than an unprofiled one)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from music_synthesis_tpu_torch.utils.profiling import device_events
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -345,8 +370,7 @@ def profile_launches(fn, calls: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     return {"launches_per_call": sum(e.count for e in events) / calls,
             "device_ms_per_call": device_us / calls / 1e3,
@@ -362,19 +386,27 @@ def card_name_and_power() -> str:
 
 
 def phase_build():
+    """Builds ``csrc/logmel.cu`` (nvcc) and ``csrc/msynth_io.cc`` (g++), the
+    two compilers started together; returns the kernel's result."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from music_synthesis_tpu_torch import _build
 
-    result = _build.build("logmel")
-    log(f"[build] {result.name}: {result.seconds:.2f} s -> {result.library}")
-    for line in result.ptxas:
-        log(f"[build]   {line}")
+    with ThreadPoolExecutor(2) as pool:
+        results = list(pool.map(_build.build, ("logmel", "msynth_io")))
+    for r in results:
+        log(f"[build] {r.name}: {r.seconds:.2f} s -> {r.library}")
+        for line in r.ptxas:
+            log(f"[build]   {line}")
+    result = results[0]
+    result_native = results[1]
     log(card_name_and_power())
     log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "fp32 GEMMs must not run in TF32 (the plain versions assume it)")
-    return result
+    return result, result_native
 
 
 def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
@@ -1770,10 +1802,473 @@ def phase_data_parallel(tmp: Path, seed: int = DEFAULT_PATH_SEED) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the JAX package's last modules in the port: native WAV I/O, the
+# extract_features / eval_stage1 / parity / average_ckpts CLIs, torch.export
+# deployment and the steps' named regions.
+
+
+def composer_float64(gen, z: torch.Tensor) -> torch.Tensor:
+    """``SpectrogramGenerator.forward`` in float64 on a float64 copy of
+    ``gen`` (the module's own forward casts to fp32): the exact answer the
+    fp32 composer's output is compared with in ``eval_stage1_gaps``."""
+    import copy
+
+    import torch.nn.functional as F
+
+    m = copy.deepcopy(gen).double()
+    for mod in m.modules():
+        if hasattr(mod, "compute_dtype"):
+            mod.compute_dtype = torch.float64
+    cfg = m.cfg
+    x = m.latent_in(z.double()).reshape(z.shape[0], cfg.initial_frames,
+                                        cfg.base_channels).transpose(1, 2)
+    for i in range(len(cfg.upsample_factors)):
+        x = F.leaky_relu(x, cfg.leaky_slope)
+        x = getattr(m, f"upsample_{i}")(x)
+        x = getattr(m, f"res_{i}")(x)
+    x = m.conv_out(F.leaky_relu(x, cfg.leaky_slope))
+    return torch.tanh(cfg.out_temperature * x).transpose(1, 2)
+
+
+def eval_stage1_inputs(seed: int = DEFAULT_PATH_SEED):
+    """``(cfg, entry, z)`` of phase 13's card-vs-CPU eval_stage1 check: the
+    zoo composer's pipeline config as the CLI builds it, and 64 seeded
+    latents."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.config import PipelineConfig
+
+    e = zoo.load_pretrained("specgan_flux")
+    cfg = dataclasses.replace(PipelineConfig(specgan=e.config),
+                              frontend=e.frontend, mel_scaler=e.mel_scaler)
+    z = np.random.default_rng(seed).standard_normal(
+        (EVAL1_N, e.config.latent_dim)).astype(np.float32)
+    return cfg, e, torch.from_numpy(z)
+
+
+def eval_stage1_gaps(corpus: Path) -> dict:
+    """|fp32 - float64| per eval_stage1 metric on the CPU, on ``corpus``
+    (the rich corpus) and ``eval_stage1_inputs``' latents: the composer in
+    fp32 against ``composer_float64``, the log-mel's plain version in fp32
+    against float64 on the same padded audio, the statistics in numpy on
+    each."""
+    from music_synthesis_tpu_torch.data.dataset import AudioDataset
+    from music_synthesis_tpu_torch.ops import logmel as L
+    from music_synthesis_tpu_torch.scripts import eval_stage1 as E
+
+    cfg, e, z = eval_stage1_inputs()
+    gen = e.model("cpu")
+    with torch.inference_mode():
+        m32, _ = E.evaluate(cfg, gen, corpus, z, 0)
+        fake64 = composer_float64(gen, z).numpy()
+        seg = cfg.specgan.n_frames * cfg.frontend.hop_length
+        ds = AudioDataset(corpus, sample_rate=cfg.frontend.sample_rate,
+                          segment_length=seg)
+        wav = torch.from_numpy(ds.sample_batch(2**28, EVAL1_N, seed=4321))
+        padded, n = L.padded_input(wav, cfg.frontend, True)
+        mel = L.log_mel_frames_plain(padded.double(), cfg.frontend, n)
+        real64 = ((mel - cfg.mel_scaler.shift)
+                  / cfg.mel_scaler.scale).numpy()
+    m64 = E.score(fake64, real64, 0)
+    return {k: abs(m32[k] - m64[k]) for k in EVAL1_METRICS}
+
+
+def native_io_check(tmp: Path, rng: np.random.Generator) -> dict:
+    """A 30 s 44.1 kHz stereo PCM16 clip decoded and resampled to 22.05 kHz
+    by the C++ library against scipy: the interior within 2e-3
+    (``tests/test_native.py``'s tolerance), host ms of each (median of 3)."""
+    import scipy.io.wavfile
+
+    from music_synthesis_tpu_torch.data import native
+    from music_synthesis_tpu_torch.utils.wav import load_wav
+
+    check(native.available(), "the native IO library is not available")
+    sr = 44100
+    stereo = np.stack([test_audio(rng, 1, 30 * sr, sr)[0] for _ in range(2)], 1)
+    path = tmp / "native_30s_stereo.wav"
+    scipy.io.wavfile.write(path, sr, (stereo * 32767.0).astype(np.int16))
+    out, host_ms = {}, {}
+    for name, use_native in (("native", True), ("scipy", False)):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out[name] = load_wav(path, 22050, use_native=use_native)
+            times.append(1e3 * (time.perf_counter() - t0))
+        host_ms[name] = float(np.median(times))
+    check(out["native"].shape == out["scipy"].shape == (15 * sr,),
+          f"decoded lengths {out['native'].shape} {out['scipy'].shape}")
+    err = float(np.abs(out["native"][200:-200] - out["scipy"][200:-200]).max())
+    check(err <= 2e-3, f"native vs scipy resampling: {err} > 2e-3")
+    log(f"[native] 30 s 44.1 kHz stereo -> 22.05 kHz mono: native "
+        f"{host_ms['native']:.1f} ms, scipy {host_ms['scipy']:.1f} ms (host "
+        f"clock, median of 3); interior max abs diff {err:.3g}")
+    return {"host_ms": host_ms, "max_abs_diff": err}
+
+
+def kernel_at(wav: torch.Tensor, cfg, for_vocoder: bool) -> dict:
+    """The kernel in "exact" precision at ``wav``'s shape against its plain
+    version evaluated in float64 (``TOL["exact"]``), its times (both
+    paths), the plain version's time and the bounds. Launches made here
+    are comparisons, not a path's."""
+    from music_synthesis_tpu_torch.ops import logmel as L
+
+    padded, n_frames = L.padded_input(wav, cfg, for_vocoder)
+    want = L.log_mel_frames_plain(padded.double(), cfg, n_frames)
+    got = L.logmel_kernel(padded, cfg, n_frames, "exact")
+    torch.cuda.synchronize()
+    err = (got.double() - want).abs().max().item()
+    shape = list(wav.shape)
+    check(np.isfinite(err) and err <= TOL["exact"],
+          f"log-mel kernel {shape} exact: max abs err {err} > {TOL['exact']}")
+    row = {"shape": shape, "variant": "for_vocoder" if for_vocoder
+           else "log_mel", "frames": n_frames, "max_abs_err": err,
+           "ms": time_ms(lambda: L.logmel_kernel(padded, cfg, n_frames,
+                                                 "exact")),
+           "ms_fast": time_ms(lambda: L.logmel_kernel(padded, cfg, n_frames,
+                                                      "fast")),
+           "plain_ms": time_ms(lambda: L.log_mel_frames_plain(padded, cfg,
+                                                              n_frames)),
+           **logmel_bound_ms(shape[0], padded.shape[1], n_frames, cfg)}
+    log(f"[kernel] logmel {shape} {row['variant']} ({n_frames} frames): exact "
+        f"err {err:.3g}; exact (FFMA) {row['ms']:.4f} ms, fast (3xTF32) "
+        f"{row['ms_fast']:.4f} ms, plain {row['plain_ms']:.4f} ms; FFMA bound "
+        f"{row['ffma_ms']:.4f} ms ({row['ffma_by']}), 3xTF32 bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}), on "
+        f"{card_name_and_power()}")
+    return row
+
+
+def phase_extract_features(tmp: Path) -> dict:
+    """``extract_features`` on a 4 s clip (main path: the launch count is
+    set to 0 just before and read just after; one launch), then the kernel
+    at its shape against float64."""
+    from music_synthesis_tpu_torch.config import FRONTEND_CPU_CLIP
+    from music_synthesis_tpu_torch.data.dataset import make_synthetic_corpus
+    from music_synthesis_tpu_torch.ops import logmel as L
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.scripts import extract_features
+    from music_synthesis_tpu_torch.utils.wav import load_wav
+
+    cfg = FRONTEND_CPU_CLIP.frontend
+    clip = make_synthetic_corpus(tmp / "clip_4s", n_clips=1, seconds=4.0)[0]
+    logmel_kernel.n_launches = 0
+    lines = run_cli(extract_features, [str(clip), "--out",
+                                       str(tmp / "mel.npy")])
+    launches = logmel_kernel.n_launches
+    mel = np.load(tmp / "mel.npy")
+    check(launches == 1, f"extract_features launched the kernel {launches} "
+          "times")
+    check(mel.shape == (341, 128) and np.isfinite(mel).all(),
+          f"extract_features mel {mel.shape}")
+    wav = torch.from_numpy(load_wav(clip, cfg.sample_rate))[None].cuda()
+    check(tuple(wav.shape) == (1, 88200), f"clip {tuple(wav.shape)}")
+    row = kernel_at(wav, cfg, for_vocoder=False)
+    # What the CLI times: padding, one launch and a synchronise (host
+    # clock, median of 21 calls).
+    host = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        L.fused_log_mel(wav, cfg, "exact")
+        torch.cuda.synchronize()
+        host.append(1e3 * (time.perf_counter() - t0))
+    row["cli_call_host_ms"] = float(np.median(host))
+    log(f"[extract_features] the CLI's timed call (pad, launch, synchronise): "
+        f"{row['cli_call_host_ms']:.4f} ms, host clock, median of 21")
+    padded, n_frames = L.padded_input(wav, cfg, False)
+    want = L.log_mel_frames_plain(padded.double(), cfg, n_frames)[0]
+    cli_err = float(np.abs(mel - want.cpu().numpy()).max())
+    check(cli_err <= TOL["exact"], f"extract_features' mel vs float64: "
+          f"{cli_err} > {TOL['exact']}")
+    return {"cli_line": lines[0], "launches": launches, "kernel": row,
+            "cli_mel_err": cli_err}
+
+
+EVAL1_N = 64
+EVAL1_METRICS = ("bin_mean_l2", "bin_std_l2", "real_flux", "fake_flux",
+                 "flux_ratio", "eig_log_l2", "fake_rms", "real_rms")
+# eval_stage1 on the card (fp32, cuDNN TF32 off, the "exact" kernel)
+# against the CPU (fp32) with the same latents, |card - cpu| per metric:
+# the CPU's own |fp32 - float64| gap on the rich corpus (``eval_stage1_gaps``,
+# `python3 chip_smoke.py --cpu-gaps` on the card machine's x86-64 CPU,
+# PyTorch 2.11.0+cu128), times 10: the card and the CPU each round in fp32
+# at other places (up to the gap each), and cuDNN may pick Winograd or FFT
+# convolutions, whose fp32 rounding is several times a direct one's. (The
+# real side: the kernel is within ~1e-6 of float64, so the card's real
+# patches differ from the CPU's by the CPU's own gap.)
+EVAL1_CPU_GAPS = {"bin_mean_l2": 1.3074991922767953e-06,
+                  "bin_std_l2": 5.553381846046257e-08,
+                  "real_flux": 8.263396356067432e-10,
+                  "fake_flux": 2.3059532894276202e-09,
+                  "flux_ratio": 2.0675396950053937e-08,
+                  "eig_log_l2": 1.2087643774805201e-08,
+                  "fake_rms": 3.516677615778008e-08,
+                  "real_rms": 5.0883604663098936e-08}
+EVAL1_GAP_FACTOR = 10.0
+
+
+def eval1_tol() -> dict:
+    return {k: EVAL1_GAP_FACTOR * v for k, v in EVAL1_CPU_GAPS.items()}
+
+
+def phase_eval_stage1(tmp: Path) -> dict:
+    """``eval_stage1 --zoo specgan_flux --n 64`` on phase 10's corpus (main
+    path: the launch count is set to 0 just before and read just after; one
+    launch), the kernel at [64, 32768] against float64, and the card's
+    metrics against the CPU's."""
+    from music_synthesis_tpu_torch.data.dataset import AudioDataset
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.scripts import eval_stage1
+
+    corpus = tmp / "corpus_rich"
+    logmel_kernel.n_launches = 0
+    t0 = time.perf_counter()
+    metrics, anchors = eval_stage1.main([
+        "--zoo", "specgan_flux", "--corpus", str(corpus), "--n",
+        str(EVAL1_N), "--out", str(tmp / "eval_stage1")])
+    seconds = time.perf_counter() - t0
+    launches = logmel_kernel.n_launches
+    check(launches == 1, f"eval_stage1 launched the kernel {launches} times")
+    check(all(np.isfinite(metrics[k]) for k in EVAL1_METRICS)
+          and metrics["n_patches"] == EVAL1_N, f"eval_stage1 {metrics}")
+    check(set(anchors) == {"random_weights", "white_noise"} and all(
+        np.isfinite(v) for a in anchors.values() for v in a.values()),
+        f"eval_stage1 anchors {anchors}")
+    log(f"[eval_stage1] zoo specgan_flux, {EVAL1_N} patches: {seconds:.2f} s "
+        f"on {card_name_and_power()}; " + ", ".join(
+            f"{k} {metrics[k]:.5g}" for k in EVAL1_METRICS))
+
+    cfg, e, z = eval_stage1_inputs()
+    seg = cfg.specgan.n_frames * cfg.frontend.hop_length
+    ds = AudioDataset(corpus, sample_rate=cfg.frontend.sample_rate,
+                      segment_length=seg)
+    wav = torch.from_numpy(ds.sample_batch(2**28, EVAL1_N, seed=4321)).cuda()
+    check(tuple(wav.shape) == (64, 32768), f"patches {tuple(wav.shape)}")
+    row = kernel_at(wav, cfg.frontend, for_vocoder=True)
+
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        card, _ = eval_stage1.evaluate(cfg, e.model("cuda"), corpus, z, 0)
+    cpu, _ = eval_stage1.evaluate(cfg, e.model("cpu"), corpus, z, 0)
+    tol = eval1_tol()
+    gaps = {k: abs(card[k] - cpu[k]) for k in EVAL1_METRICS}
+    for k in EVAL1_METRICS:
+        log(f"[eval_stage1] {k}: card {card[k]:.7g} CPU {cpu[k]:.7g}, |gap| "
+            f"{gaps[k]:.3g} (tolerance {tol[k]:.3g})")
+        check(gaps[k] <= tol[k], f"eval_stage1 {k} card vs CPU: {gaps[k]} > "
+              f"{tol[k]}")
+    return {"seconds": seconds, "launches": launches, "metrics": metrics,
+            "anchors": anchors, "kernel": row, "card_vs_cpu": gaps,
+            "tolerance": tol}
+
+
+def phase_parity(tmp: Path) -> dict:
+    """``parity`` on phase 10's eval WAVs (eval_checkpoint writes the real,
+    resynthesized and GL-refined clips, no GL-anchor WAV): real against
+    itself is 0, against the resynthesis and the refinement > 0."""
+    import shutil
+
+    from music_synthesis_tpu_torch.scripts import parity
+
+    src = tmp / "eval_zoo"
+    dirs = {}
+    for kind in ("real", "resynth", "refined"):
+        d = dirs[kind] = tmp / f"parity_{kind}"
+        d.mkdir()
+        for f in sorted(src.glob(f"{kind}_*.wav")):
+            shutil.copy(f, d / f.name.split("_", 1)[1])
+    out = {}
+    for a, b in (("real", "real"), ("real", "resynth"), ("real", "refined")):
+        line = json.loads(run_cli(parity, [str(dirs[a]), str(dirs[b])])[-1])
+        check(len(line["per_file"]) == 8, f"parity {a}/{b} pairs")
+        out[f"{a}_vs_{b}"] = line["value"]
+    check(out["real_vs_real"] == 0.0, f"parity(d, d) = {out['real_vs_real']}")
+    check(out["real_vs_resynth"] > 0.0 and out["real_vs_refined"] > 0.0,
+          f"parity against the vocoder's audio {out}")
+    log(f"[parity] {out}")
+    return out
+
+
+def phase_average_ckpts(lifecycle: dict, tmp: Path) -> dict:
+    """``average_ckpts`` over phase 8's stage-2 checkpoints, the averaged
+    weights against the float64 mean (exact), ``eval_checkpoint --run`` on
+    the averaged run."""
+    from music_synthesis_tpu_torch.scripts import average_ckpts, eval_checkpoint
+    from music_synthesis_tpu_torch.train.checkpoint import CheckpointManager
+
+    run = Path(lifecycle["run2"])
+    steps = CheckpointManager(run / "ckpt").all_steps()
+    check(steps == [2, 4], f"phase 8's stage-2 checkpoints {steps}")
+    out = tmp / "stage2_avg"
+    run_cli(average_ckpts, ["--run", str(run), "--steps",
+                            ",".join(map(str, steps)), "--out", str(out)])
+    states = [CheckpointManager(run / "ckpt").restore(s) for s in steps]
+    avg = CheckpointManager(out / "ckpt").restore()
+    check(avg.g_ema is not None, "phase 8's stage-2 run keeps an EMA")
+    for tree in ("g_params", "g_ema"):
+        got = getattr(avg, tree)
+        for name, t in got.items():
+            mean = sum(getattr(s, tree)[name].double() for s in states) / 2
+            check(torch.equal(t, mean.float()),
+                  f"averaged {tree}.{name} is not the float64 mean")
+    check((out / "STATUS").read_text().startswith("SWA average"), "STATUS")
+    run_cli(eval_checkpoint, ["--run", str(out), "--corpus",
+                              lifecycle["corpus"], "--out",
+                              str(tmp / "eval_avg")])
+    ev = json.loads((tmp / "eval_avg" / "eval.json").read_text())
+    check(ev["checkpoint_step"] == 4 and all(
+        np.isfinite(v) for v in ev["per_clip"]["dist"]), "eval of the average")
+    log(f"[average_ckpts] steps {steps} -> {out}; eval --run distance "
+        f"{ev['copy_synthesis_multires_stft_distance_mean']:.4f}")
+    return {"steps": steps, "eval_distance":
+            ev["copy_synthesis_multires_stft_distance_mean"]}
+
+
+def phase_deploy(tmp: Path) -> dict:
+    """Both artifacts for ``cuda,cpu`` from the zoo flagships (fp32),
+    saved, read, loaded and run at batch 1 and 4 on the card against the
+    live modules (``FP32_TOL``, cuDNN TF32 off), and once on the CPU; the
+    file size, export seconds and call ms against the live module's."""
+    from music_synthesis_tpu_torch import deploy, zoo
+    from music_synthesis_tpu_torch.config import PipelineConfig
+    from music_synthesis_tpu_torch.infer.generate import generate
+
+    s1 = zoo.load_pretrained("specgan_flux")
+    s2 = zoo.load_pretrained("vocoder_istft")
+    voc_cfg = dataclasses.replace(s2.config, compute_dtype="float32")
+    cfg = PipelineConfig(specgan=s1.config, vocoder=voc_cfg,
+                         frontend=s2.frontend, mel_scaler=s2.mel_scaler)
+    live = {"cuda": {}, "cpu": {}}
+    for dev in live:
+        comp = s1.model(dev)
+        voc = s2.model(dev, "float32")
+        live[dev]["vocoder"] = voc
+        live[dev]["pipeline"] = lambda z, comp=comp, voc=voc: generate(
+            cfg, comp, voc, z)
+    g = torch.Generator().manual_seed(DEFAULT_PATH_SEED)
+    out = {}
+    for kind in ("vocoder", "pipeline"):
+        t0 = time.perf_counter()
+        if kind == "vocoder":
+            exported, meta = deploy.vocoder_artifact(
+                s2.state_dict, voc_cfg, 64, batch=None,
+                platforms=("cuda", "cpu"))
+            shape = (64, voc_cfg.n_mels)
+        else:
+            exported, meta = deploy.pipeline_artifact(
+                cfg, s1.state_dict, s2.state_dict, batch=None,
+                platforms=("cuda", "cpu"))
+            shape = (cfg.specgan.latent_dim,)
+        export_s = time.perf_counter() - t0
+        path = deploy.save_artifact(tmp / f"{kind}.msx", exported, meta)
+        read = deploy.read_meta(path)
+        check(read == json.loads(json.dumps(meta)) and read["platforms"] == [
+            "cuda", "cpu"] and read["inputs"][0]["shape"][0] == "b",
+            f"{kind} header {read}")
+        row = {"file_mb": path.stat().st_size / 1e6, "export_s": export_s,
+               "n_params_baked": read["n_params_baked"], "err": {}}
+        for dev in ("cuda", "cpu"):
+            art = deploy.load_artifact(path, device=dev)
+            check(art.device.type == dev, f"{kind} program for {dev}")
+            for b in ((1, 4) if dev == "cuda" else (1,)):
+                x = torch.randn((b, *shape), generator=g).to(dev)
+                with torch.inference_mode(), torch.backends.cudnn.flags(
+                        enabled=True, allow_tf32=False):
+                    got, want = art(x), live[dev][kind](x)
+                check(got.device.type == dev and got.shape == want.shape,
+                      f"{kind} on {dev}: {tuple(got.shape)}")
+                err = (got.float() - want.float()).abs().max().item()
+                row["err"][f"{dev}_b{b}"] = err
+                check(err <= FP32_TOL, f"{kind} artifact on {dev} at batch "
+                      f"{b} vs the live module: {err} > {FP32_TOL}")
+            if dev == "cuda":
+                x = torch.randn((4, *shape), generator=g).cuda()
+                with torch.inference_mode():
+                    row["call_ms_b4"] = time_ms(lambda: art(x), samples=11,
+                                                reps=5, warmup=3)
+                    row["live_ms_b4"] = time_ms(lambda: live["cuda"][kind](x),
+                                                samples=11, reps=5, warmup=3)
+        log(f"[deploy] {kind}: {row['file_mb']:.1f} MB, exported for cuda,cpu "
+            f"in {export_s:.1f} s, {row['n_params_baked']:,} baked; max abs "
+            f"err vs live {row['err']}; call at batch 4 {row['call_ms_b4']:.3f}"
+            f" ms vs live {row['live_ms_b4']:.3f} ms (CUDA events), on "
+            f"{card_name_and_power()}")
+        out[kind] = row
+    return out
+
+
+def phase_profiling(rng: np.random.Generator, tmp: Path) -> dict:
+    """One flagship stage-2 step and one stage-1 step (after one warm-up
+    each, and one traced step that ``region_split`` drops) under
+    ``utils.profiling.trace``: every JAX region name the config's step
+    opens is in the trace, and ``region_split``'s device ms per region."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train import stage1, stage2
+    from music_synthesis_tpu_torch.train.flagship import (
+        flagship_config, stage1_flagship_config, zoo_train_state)
+    from music_synthesis_tpu_torch.utils.profiling import (
+        OUTSIDE, TRACE_FILE, region_split, step_regions, trace)
+
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg2 = flagship_config(entry)
+    t = cfg2.train
+    state2 = dataclasses.replace(
+        zoo_train_state(cfg2, entry, "cuda", seed=t.seed),
+        step=t.g_warmup_steps)
+    wav = torch.from_numpy(test_audio(rng, t.batch_size, t.segment_length,
+                                      cfg2.frontend.sample_rate)).cuda()
+    entry1 = zoo.load_pretrained("specgan_flux")
+    cfg1 = stage1_flagship_config(entry1)
+    state1 = zoo_train_state(cfg1, entry1, "cuda", seed=cfg1.train.seed)
+    mel = stage1_patches(rng, cfg1, "cuda")
+    out = {}
+    for stage, step in ((2, lambda: stage2.train_step(cfg2, state2, wav)),
+                        (1, lambda: stage1.train_step(cfg1, state1, mel))):
+        names = step_regions(cfg2 if stage == 2 else cfg1, stage)
+        step()
+        d = tmp / f"trace_stage{stage}"
+        with trace(d):
+            step()  # dropped by skip=1 (its first launches may lack records)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        split = region_split(d / TRACE_FILE, names, skip=1)
+        missing = [n for n in names if not split[n]["found"]]
+        check(not missing, f"stage-{stage} trace misses regions {missing}")
+        check(split["d_step"]["device_ms"] > 0 and split["g_step"][
+            "device_ms"] > 0, f"stage-{stage} split found no device work")
+        log(f"[profile] stage-{stage} flagship step under the profiler: "
+            f"{wall_ms:.1f} ms wall, on {card_name_and_power()}")
+        log(f"[profile]   stage {stage}: {split[OUTSIDE]['no_launch_record']}"
+            f" device launches without a host launch record in the trace")
+        for name, row in split.items():
+            log(f"[profile]   stage {stage} {name:16s} host "
+                f"{row['host_ms']:8.2f} ms, device {row['device_ms']:8.3f} "
+                f"ms, {row['launches']:6.0f} launches; top "
+                + "; ".join(f"{k} {v:.3f}" for k, v in row["top"]))
+        out[f"stage{stage}"] = {"wall_ms": wall_ms, "regions": split}
+    return out
+
+
+def phase_port_modules(rng: np.random.Generator, tmp: Path,
+                       lifecycle: dict) -> dict:
+    """Phase 13, in phases 8-12's directory (phase 10's corpus and eval
+    WAVs, phase 8's stage-2 run)."""
+    out = {"native": native_io_check(tmp, rng),
+           "extract_features": phase_extract_features(tmp),
+           "eval_stage1": phase_eval_stage1(tmp),
+           "parity": phase_parity(tmp),
+           "average_ckpts": phase_average_ckpts(lifecycle, tmp),
+           "deploy": phase_deploy(tmp),
+           "profiling": phase_profiling(rng, tmp)}
+    return out
+
+
 def cpu_gaps() -> dict:
     """The CPU's own max abs gaps between bf16 and fp32 at the default-path
     checks' inputs and weights: copy-synthesis (waveform and distance) and
-    one 4 s serving request (seed 3)."""
+    one 4 s serving request (seed 3); and eval_stage1's |fp32 - float64|
+    per metric on the regenerated rich corpus (``eval_stage1_gaps``)."""
     from music_synthesis_tpu_torch.infer.copy_synthesis import CopySynthesizer
     from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
 
@@ -1788,9 +2283,17 @@ def cpu_gaps() -> dict:
     n = s32.patches_for_seconds(4.0)
     z = s32._z_rows(3, 1, n)
     w32, w16 = s32._execute(n, z), s16._execute(n, z)
+    with tempfile.TemporaryDirectory(prefix="cpu_gaps_") as tmp:
+        from music_synthesis_tpu_torch.scripts import make_corpus
+
+        corpus = Path(tmp) / "corpus_rich"
+        make_corpus.main(["--out", str(corpus), "--clips", "256", "--seconds",
+                          "30", "--seed", "0"])
+        eval1 = eval_stage1_gaps(corpus)
     return {"copy_wav": (y16.float() - y32).abs().max().item(),
             "copy_distance": abs(d16 - d32),
             "serve_wav": float(np.abs(w16 - w32).max()),
+            "eval_stage1": eval1,
             "torch": torch.__version__}
 
 
@@ -1815,7 +2318,7 @@ def main() -> int:
     from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 
     log("== phase 1: build and environment")
-    build = phase_build()
+    build, build_native = phase_build()
     log("== phase 2: kernel vs plain")
     kv = phase_kernel_vs_plain(rng)
 
@@ -1895,6 +2398,16 @@ def main() -> int:
             f"{launches['dp_single']} in this process's single-process step")
         check(launches["dp_train"] > 0, "the DP steps never launched the kernel")
 
+        log("== phase 13: native IO, extract_features, eval_stage1, parity, "
+            "average_ckpts, deploy, named regions (main path)")
+        modules = phase_port_modules(rng, Path(tmp), lifecycle)
+        modules["native"]["build_s"] = build_native.seconds
+        launches["extract_features"] = modules["extract_features"]["launches"]
+        launches["eval_stage1"] = modules["eval_stage1"]["launches"]
+        log(f"[main] kernel launches: extract_features "
+            f"{launches['extract_features']}, eval_stage1 "
+            f"{launches['eval_stage1']}")
+
     log("== phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
@@ -1906,7 +2419,9 @@ def main() -> int:
         "source": "music_synthesis_tpu_torch/csrc/logmel.cu",
         "replaces": "music_synthesis_tpu/ops/pallas_frontend.py:207",
         "launches": sum(launches.values()),
-        "max_abs_err": max(kv["worst"].values()),
+        "max_abs_err": max(*kv["worst"].values(),
+                           modules["extract_features"]["kernel"]["max_abs_err"],
+                           modules["eval_stage1"]["kernel"]["max_abs_err"]),
         "ms": main_row["ms"],
         "plain_ms": main_row["plain_ms"],
         "bound_ms": main_row["bound_ms"],
@@ -1924,6 +2439,8 @@ def main() -> int:
         "eval_clip": {key: eval_row[key] for key in (
             "shape", "ms", "ms_exact", "plain_ms", "bound_ms", "bound_by",
             "ffma_ms", "ffma_by", "max_abs_err")},
+        "extract_features_clip": modules["extract_features"]["kernel"],
+        "eval_stage1_batch": modules["eval_stage1"]["kernel"],
         "launches_by_path": {"copy_synthesis_and_serving": launches["logmel"],
                              "train_step": launches["train"],
                              "stage1_train_step": launches["stage1_train"],
@@ -1932,7 +2449,9 @@ def main() -> int:
                              "eval_run": evals["eval_run_launches"],
                              "eval_and_inference_clis": launches["eval_clis"],
                              "dp_train_step": launches["dp_train"],
-                             "dp_single_step": launches["dp_single"]},
+                             "dp_single_step": launches["dp_single"],
+                             "extract_features": launches["extract_features"],
+                             "eval_stage1": launches["eval_stage1"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
@@ -1945,6 +2464,7 @@ def main() -> int:
                "http": http_out,
                "eval_and_clis": evals,
                "data_parallel": dp,
+               "port_modules": modules,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

@@ -39,6 +39,17 @@ def _irdft_tensors(n_fft: int, device: torch.device):
                      for m in irdft_matrices(n_fft))
 
 
+def _irdft_bases(n_fft: int, x: torch.Tensor):
+    """The bases on ``x``'s device. While ``torch.export``, ``torch.compile``
+    or a fake or functional mode traces (``x`` is then a tensor subclass),
+    they are made anew, so the cache never holds a traced tensor: one would
+    turn every later eager call on that device into a fake one."""
+    if torch.compiler.is_compiling() or type(x) is not torch.Tensor:
+        return tuple(torch.from_numpy(m).to(x.device)
+                     for m in irdft_matrices(n_fft))
+    return _irdft_tensors(n_fft, x.device)
+
+
 def istft_synthesis(re: torch.Tensor, im: torch.Tensor, n_fft: int,
                     hop: int) -> torch.Tensor:
     """``[B, T, n_fft//2+1]`` x2 -> ``[B, T*hop]``.
@@ -49,7 +60,7 @@ def istft_synthesis(re: torch.Tensor, im: torch.Tensor, n_fft: int,
     ``torch.backends.cuda.matmul.allow_tf32`` False, and nothing in the port
     turns it on.
     """
-    ic, is_ = _irdft_tensors(n_fft, re.device)
+    ic, is_ = _irdft_bases(n_fft, re)
     frames = re.float() @ ic + im.float() @ is_
     window = hann_window(n_fft, frames.dtype, re.device)
     wav = overlap_add(frames * window, hop)

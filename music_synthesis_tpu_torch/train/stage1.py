@@ -11,7 +11,9 @@ The structure is ``train/stage2.py``'s: eager PyTorch, modules without
 storage called with the state's parameters (``functional_call``), one
 ``torch.autograd.grad`` per player, one G forward for both updates. Each
 step draws the latents, then (with instance noise) three normals, from the
-state's generator; ``z=`` and ``noise=`` replace those draws.
+state's generator; ``z=`` and ``noise=`` replace those draws. The step's
+phases are ``torch.profiler.record_function`` regions under the JAX step's
+``jax.named_scope`` names (``utils/profiling.py``).
 
 Data parallelism (``group``, ``dp``) is ``train/stage2.py``'s: gradients
 and metrics averaged over the ranks, the draws of the global batch kept by
@@ -27,6 +29,7 @@ import functools
 
 import torch
 from torch.func import functional_call
+from torch.profiler import record_function
 
 from music_synthesis_tpu_torch._device import resolve_device
 from music_synthesis_tpu_torch.config import PipelineConfig
@@ -139,7 +142,8 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
     z = torch.as_tensor(z, dtype=torch.float32, device=dev)
     g_names = list(state.g_params)
     g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
-    fake = functional_call(gen, dict(zip(g_names, g_leaves)), (z,))
+    with record_function("generator_fwd"):
+        fake = functional_call(gen, dict(zip(g_names, g_leaves)), (z,))
     fake_sg = fake.detach()
 
     # Instance noise: three normals; the third is added (with gradients)
@@ -157,67 +161,83 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
     d_names = list(state.d_params)
     d_leaves = [p.detach().requires_grad_() for p in state.d_params.values()]
     d_in = dict(zip(d_names, d_leaves))
-    real_logit, real_feats = functional_call(disc, d_in, (d_real_in,))
-    fake_logit, _ = functional_call(disc, d_in, (d_fake_in,))
-    d_loss = d_loss_fn(t.gan_loss)(real_logit, fake_logit)
     metrics = {}
-    if t.r1_gamma > 0:
-        # R1 on D(noised real): the input gradient of the summed logits,
-        # kept in the graph so D's gradient flows through it.
-        x = d_real_in.detach().requires_grad_()
-        logit, _ = functional_call(disc, d_in, (x,))
-        (gx,) = torch.autograd.grad(logit.float().sum(), x, create_graph=True)
-        per_sample = gx.float().square().sum(dim=tuple(range(1, gx.ndim)))
-        r1 = 0.5 * t.r1_gamma * per_sample.mean()
-        d_loss = d_loss + r1
-        metrics["d_r1"] = r1.detach()
-    d_grads = list(torch.autograd.grad(d_loss, d_leaves))
-    if group is not None:
-        d_grads = all_reduce_mean(d_grads, group)
-    d_grad_norm = global_norm(d_grads)
-    d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)), state.d_opt)
-    d_update_norm = global_norm(d_updates)
-    d_params = dict(zip(d_names, torch._foreach_add(
-        list(state.d_params.values()), d_updates)))
+    with record_function("d_step"):
+        with record_function("disc_real"):
+            real_logit, real_feats = functional_call(disc, d_in, (d_real_in,))
+        with record_function("disc_fake"):
+            fake_logit, _ = functional_call(disc, d_in, (d_fake_in,))
+        d_loss = d_loss_fn(t.gan_loss)(real_logit, fake_logit)
+        if t.r1_gamma > 0:
+            # R1 on D(noised real): the input gradient of the summed
+            # logits, kept in the graph so D's gradient flows through it.
+            with record_function("r1_penalty"):
+                x = d_real_in.detach().requires_grad_()
+                logit, _ = functional_call(disc, d_in, (x,))
+                (gx,) = torch.autograd.grad(logit.float().sum(), x,
+                                            create_graph=True)
+                per_sample = gx.float().square().sum(
+                    dim=tuple(range(1, gx.ndim)))
+                r1 = 0.5 * t.r1_gamma * per_sample.mean()
+            d_loss = d_loss + r1
+            metrics["d_r1"] = r1.detach()
+        d_grads = list(torch.autograd.grad(d_loss, d_leaves))
+        if group is not None:
+            d_grads = all_reduce_mean(d_grads, group)
+        d_grad_norm = global_norm(d_grads)
+        d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
+                                      state.d_opt)
+        d_update_norm = global_norm(d_updates)
+        d_params = dict(zip(d_names, torch._foreach_add(
+            list(state.d_params.values()), d_updates)))
 
     # --- G step, against the updated D (which takes no gradient) ---
-    fake_g_in = fake if g_noise is None else fake + g_noise
-    fake_logit_g, fake_feats = functional_call(disc, d_params, (fake_g_in,))
-    if t.reuse_real_features and t.d_input_noise == 0:
-        real_feats_g = [f.detach() for f in real_feats]
-    else:
-        # The FM target is D's taps of the clean real batch (with noise
-        # on, the D step's taps saw the noised one).
-        with torch.no_grad():
-            _, real_feats_g = functional_call(disc, d_params, (real,))
-    adv = g_loss_fn(t.gan_loss)(fake_logit_g)
-    fm = feature_matching_loss(real_feats_g, fake_feats)
-    total = adv + t.lambda_feature_matching * fm
-    aux = {"g_adv": adv, "g_fm": fm}
-    if t.lambda_flux > 0:
-        pf, pr = _flux_profile(fake), _flux_profile(real)
+    with record_function("g_step"):
+        # G's forward is generator_fwd's, whose graph G's gradient goes
+        # back through: this region holds only the noise on its output.
+        with record_function("generator_fwd_g"):
+            fake_g_in = fake if g_noise is None else fake + g_noise
+        with record_function("disc_fake_g"):
+            fake_logit_g, fake_feats = functional_call(disc, d_params,
+                                                       (fake_g_in,))
+        if t.reuse_real_features and t.d_input_noise == 0:
+            real_feats_g = [f.detach() for f in real_feats]
+        else:
+            # The FM target is D's taps of the clean real batch (with noise
+            # on, the D step's taps saw the noised one).
+            with record_function("disc_real_g"), torch.no_grad():
+                _, real_feats_g = functional_call(disc, d_params, (real,))
+        with record_function("losses"):
+            adv = g_loss_fn(t.gan_loss)(fake_logit_g)
+            fm = feature_matching_loss(real_feats_g, fake_feats)
+            total = adv + t.lambda_feature_matching * fm
+            aux = {"g_adv": adv, "g_fm": fm}
+            if t.lambda_flux > 0:
+                pf, pr = _flux_profile(fake), _flux_profile(real)
+                if group is not None:
+                    pf, pr = AllReduce.apply(torch.stack([pf, pr]), group,
+                                             1.0 / world_size(group))
+                flux = torch.mean(torch.abs(pf - pr))
+                total = total + t.lambda_flux * flux
+                aux["g_flux"] = flux
+        g_grads = list(torch.autograd.grad(total, g_leaves))
         if group is not None:
-            pf, pr = AllReduce.apply(torch.stack([pf, pr]), group,
-                                     1.0 / world_size(group))
-        flux = torch.mean(torch.abs(pf - pr))
-        total = total + t.lambda_flux * flux
-        aux["g_flux"] = flux
-    g_grads = list(torch.autograd.grad(total, g_leaves))
-    if group is not None:
-        g_grads = all_reduce_mean(g_grads, group)
-    g_grad_norm = global_norm(g_grads)
-    g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)), state.g_opt)
-    g_update_norm = global_norm(g_updates)
-    g_params = dict(zip(g_names, torch._foreach_add(
-        list(state.g_params.values()), g_updates)))
+            g_grads = all_reduce_mean(g_grads, group)
+        g_grad_norm = global_norm(g_grads)
+        g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)),
+                                       state.g_opt)
+        g_update_norm = global_norm(g_updates)
+        g_params = dict(zip(g_names, torch._foreach_add(
+            list(state.g_params.values()), g_updates)))
 
     g_ema = state.g_ema
     if t.ema_decay > 0:
-        ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
-                                 t.ema_decay)
-        torch._foreach_add_(ema, torch._foreach_mul(
-            list(g_params.values()), 1.0 - t.ema_decay))
-        g_ema = dict(zip(g_names, ema))
+        with record_function("ema"):
+            ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
+                                     t.ema_decay)
+            torch._foreach_add_(ema, torch._foreach_mul(
+                list(g_params.values()), 1.0 - t.ema_decay))
+            g_ema = dict(zip(g_names, ema))
 
     new_state = GANState(step=state.step + 1, g_params=g_params,
                          d_params=d_params, g_opt=g_opt, d_opt=d_opt,

@@ -13,7 +13,10 @@ functional_call``), so neither player's ``.grad`` is ever written: each
 gradient is ``torch.autograd.grad`` of one loss with respect to one
 player's parameters. The G forward of the D step and the G step is one
 forward (G's parameters do not change in between, so the JAX step's two
-forwards give the same tensor).
+forwards give the same tensor). The step's phases are
+``torch.profiler.record_function`` regions under the JAX step's
+``jax.named_scope`` names (``utils/profiling.py``); ``generator_fwd_g``
+holds only the instance noise added to that one forward's output.
 
 The conditioning mel is computed inside the step, with no gradient: with
 ``cfg.train.use_pallas_frontend`` by the fused log-mel kernel
@@ -48,6 +51,7 @@ import functools
 import numpy as np
 import torch
 from torch.func import functional_call
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from music_synthesis_tpu_torch._device import resolve_device
@@ -214,7 +218,8 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     wav = torch.as_tensor(wav, dtype=torch.float32, device=dev)
     b = wav.shape[0]
 
-    mel = conditioning_mel(wav, cfg, precision)
+    with record_function("frontend"):
+        mel = conditioning_mel(wav, cfg, precision)
     g_names = list(state.g_params)
     g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
     g_in = dict(zip(g_names, g_leaves))
@@ -222,8 +227,9 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     def run_g(x):
         return functional_call(gen, g_in, (x,))
 
-    fake = (checkpoint(run_g, mel, use_reentrant=False)
-            if t.remat_generator else run_g(mel))
+    with record_function("generator_fwd"):
+        fake = (checkpoint(run_g, mel, use_reentrant=False)
+                if t.remat_generator else run_g(mel))
     fake_sg = fake.detach()
 
     # Instance noise: three normals, the third reused (with gradients) on
@@ -243,90 +249,106 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     d_names = list(state.d_params)
     d_leaves = [p.detach().requires_grad_() for p in state.d_params.values()]
     d_in = dict(zip(d_names, d_leaves))
-    if t.concat_disc_batch:
-        logits, feats = functional_call(
-            disc, d_in, (torch.cat([d_real_in, d_fake_in]),))
-        real_logits = [l[:b] for l in logits]
-        fake_logits = [l[b:] for l in logits]
-        real_feats = [[f[:b] for f in head] for head in feats]
-    else:
-        real_logits, real_feats = functional_call(disc, d_in, (d_real_in,))
-        fake_logits, _ = functional_call(disc, d_in, (d_fake_in,))
-    d_loss = d_loss_fn(t.gan_loss)(real_logits, fake_logits)
     metrics = {}
-    if t.r1_gamma > 0:
-        # R1 on D(real): the input gradient of the summed logits (samples
-        # are independent), kept in the graph so D's gradient flows
-        # through it.
-        x = d_real_in.detach().requires_grad_()
-        ls, _ = functional_call(disc, d_in, (x,))
-        (gx,) = torch.autograd.grad(sum(l.float().sum() for l in ls), x,
-                                    create_graph=True)
-        per_sample = gx.float().square().sum(dim=tuple(range(1, gx.ndim)))
-        r1 = 0.5 * t.r1_gamma * per_sample.mean()
-        d_loss = d_loss + r1
-        metrics["d_r1"] = r1.detach()
-    d_grads = list(torch.autograd.grad(d_loss, d_leaves))
-    if group is not None:
-        d_grads = mesh.all_reduce_mean(d_grads, group)
-    d_grad_norm = global_norm(d_grads)
     # Warmup gate: D's update and Adam state stay as they are.
     adv_on = t.g_warmup_steps <= 0 or state.step >= t.g_warmup_steps
-    if adv_on:
-        d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
-                                      state.d_opt)
-        d_update_norm = global_norm(d_updates)
-        d_params = dict(zip(d_names, torch._foreach_add(
-            list(state.d_params.values()), d_updates)))
-    else:
-        d_opt, d_params = state.d_opt, state.d_params
-        d_update_norm = torch.zeros((), device=dev)
+    with record_function("d_step"):
+        if t.concat_disc_batch:
+            with record_function("disc_both"):
+                logits, feats = functional_call(
+                    disc, d_in, (torch.cat([d_real_in, d_fake_in]),))
+            real_logits = [l[:b] for l in logits]
+            fake_logits = [l[b:] for l in logits]
+            real_feats = [[f[:b] for f in head] for head in feats]
+        else:
+            with record_function("disc_real"):
+                real_logits, real_feats = functional_call(disc, d_in,
+                                                          (d_real_in,))
+            with record_function("disc_fake"):
+                fake_logits, _ = functional_call(disc, d_in, (d_fake_in,))
+        d_loss = d_loss_fn(t.gan_loss)(real_logits, fake_logits)
+        if t.r1_gamma > 0:
+            # R1 on D(real): the input gradient of the summed logits
+            # (samples are independent), kept in the graph so D's gradient
+            # flows through it.
+            with record_function("r1_penalty"):
+                x = d_real_in.detach().requires_grad_()
+                ls, _ = functional_call(disc, d_in, (x,))
+                (gx,) = torch.autograd.grad(sum(l.float().sum() for l in ls),
+                                            x, create_graph=True)
+                per_sample = gx.float().square().sum(
+                    dim=tuple(range(1, gx.ndim)))
+                r1 = 0.5 * t.r1_gamma * per_sample.mean()
+            d_loss = d_loss + r1
+            metrics["d_r1"] = r1.detach()
+        d_grads = list(torch.autograd.grad(d_loss, d_leaves))
+        if group is not None:
+            d_grads = mesh.all_reduce_mean(d_grads, group)
+        d_grad_norm = global_norm(d_grads)
+        if adv_on:
+            d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
+                                          state.d_opt)
+            d_update_norm = global_norm(d_updates)
+            d_params = dict(zip(d_names, torch._foreach_add(
+                list(state.d_params.values()), d_updates)))
+        else:
+            d_opt, d_params = state.d_opt, state.d_params
+            d_update_norm = torch.zeros((), device=dev)
     real_feats_d = [[f.detach() for f in head] for head in real_feats]
 
     # --- G step, against the updated D (which takes no gradient) ---
-    fake_g_in = fake if g_noise is None else fake + g_noise
-    fake_logits, fake_feats = functional_call(disc, d_params, (fake_g_in,))
-    if t.reuse_real_features and t.d_input_noise == 0:
-        real_feats_g = real_feats_d
-    else:
-        # With instance noise the D step's taps saw the noised batch; the
-        # FM target comes from the clean one.
-        with torch.no_grad():
-            _, real_feats_g = functional_call(disc, d_params, (wav,))
-    adv = g_loss_fn(t.gan_loss)(fake_logits)
-    fm = feature_matching_loss(real_feats_g, fake_feats)
-    stft = multires_stft_loss(fake, wav, cfg.stft_loss, group)
-    adv_w = 1.0 if adv_on else 0.0
-    total = (adv_w * (adv + t.lambda_feature_matching * fm)
-             + t.lambda_stft * stft)
-    aux = {"g_adv": adv, "g_fm": fm, "g_stft": stft}
-    if t.lambda_energy > 0:
-        hop = cfg.frontend.hop_length
-        energy = torch.mean(torch.abs(_frame_rms(fake, hop)
-                                      - _frame_rms(wav, hop)))
-        total = total + t.lambda_energy * energy
-        aux["g_energy"] = energy
-    if t.lambda_phase > 0:
-        ph = phase_coherence_loss(fake, wav, t.phase_n_fft, t.phase_hop,
-                                  group=group)
-        total = total + t.lambda_phase * ph
-        aux["g_phase"] = ph
-    g_grads = list(torch.autograd.grad(total, g_leaves))
-    if group is not None:
-        g_grads = mesh.all_reduce_mean(g_grads, group)
-    g_grad_norm = global_norm(g_grads)
-    g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)), state.g_opt)
-    g_update_norm = global_norm(g_updates)
-    g_params = dict(zip(g_names, torch._foreach_add(
-        list(state.g_params.values()), g_updates)))
+    with record_function("g_step"):
+        # G's forward is generator_fwd's, whose graph G's gradient goes
+        # back through: this region holds only the noise on its output.
+        with record_function("generator_fwd_g"):
+            fake_g_in = fake if g_noise is None else fake + g_noise
+        with record_function("disc_fake_g"):
+            fake_logits, fake_feats = functional_call(disc, d_params,
+                                                      (fake_g_in,))
+        if t.reuse_real_features and t.d_input_noise == 0:
+            real_feats_g = real_feats_d
+        else:
+            # With instance noise the D step's taps saw the noised batch;
+            # the FM target comes from the clean one.
+            with record_function("disc_real_g"), torch.no_grad():
+                _, real_feats_g = functional_call(disc, d_params, (wav,))
+        with record_function("losses"):
+            adv = g_loss_fn(t.gan_loss)(fake_logits)
+            fm = feature_matching_loss(real_feats_g, fake_feats)
+            stft = multires_stft_loss(fake, wav, cfg.stft_loss, group)
+            adv_w = 1.0 if adv_on else 0.0
+            total = (adv_w * (adv + t.lambda_feature_matching * fm)
+                     + t.lambda_stft * stft)
+            aux = {"g_adv": adv, "g_fm": fm, "g_stft": stft}
+            if t.lambda_energy > 0:
+                hop = cfg.frontend.hop_length
+                energy = torch.mean(torch.abs(_frame_rms(fake, hop)
+                                              - _frame_rms(wav, hop)))
+                total = total + t.lambda_energy * energy
+                aux["g_energy"] = energy
+            if t.lambda_phase > 0:
+                ph = phase_coherence_loss(fake, wav, t.phase_n_fft,
+                                          t.phase_hop, group=group)
+                total = total + t.lambda_phase * ph
+                aux["g_phase"] = ph
+        g_grads = list(torch.autograd.grad(total, g_leaves))
+        if group is not None:
+            g_grads = mesh.all_reduce_mean(g_grads, group)
+        g_grad_norm = global_norm(g_grads)
+        g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)),
+                                       state.g_opt)
+        g_update_norm = global_norm(g_updates)
+        g_params = dict(zip(g_names, torch._foreach_add(
+            list(state.g_params.values()), g_updates)))
 
     g_ema = state.g_ema
     if t.ema_decay > 0:
-        ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
-                                 t.ema_decay)
-        torch._foreach_add_(ema, torch._foreach_mul(
-            list(g_params.values()), 1.0 - t.ema_decay))
-        g_ema = dict(zip(g_names, ema))
+        with record_function("ema"):
+            ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
+                                     t.ema_decay)
+            torch._foreach_add_(ema, torch._foreach_mul(
+                list(g_params.values()), 1.0 - t.ema_decay))
+            g_ema = dict(zip(g_names, ema))
 
     new_state = GANState(step=state.step + 1, g_params=g_params,
                          d_params=d_params, g_opt=g_opt, d_opt=d_opt,

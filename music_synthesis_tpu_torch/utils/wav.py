@@ -2,8 +2,8 @@
 
 ``scipy.io.wavfile`` and polyphase resampling
 (``scipy.signal.resample_poly``); float32 numpy arrays at the target rate.
-The JAX package's C++ decoder (``data/native.py``) is not ported yet: this
-is its scipy path.
+``load_wav`` prefers the C++ decoder and resampler (``data/native.py``)
+and takes the scipy path when it cannot be built, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -48,7 +48,19 @@ def resample(x: np.ndarray, orig_sr: int, target_sr: int) -> np.ndarray:
     return out.astype(np.float32)
 
 
-def load_wav(path, target_sr: int = 22_050) -> np.ndarray:
-    """Read, downmix and resample to the front-end rate."""
+def load_wav(path, target_sr: int = 22_050,
+             use_native: bool = True) -> np.ndarray:
+    """Read, downmix and resample to the front-end rate: with the native
+    C++ decoder and resampler (``data/native.py``) when ``use_native`` and
+    it is available, else with scipy."""
+    if use_native:
+        from music_synthesis_tpu_torch.data import native
+
+        if native.available():
+            with open(path, "rb") as fh:
+                sr, data = native.decode_wav(fh.read())
+            if sr == target_sr:
+                return data
+            return native.resample(data, sr, target_sr)
     sr, data = read_wav(path)
     return resample(data, sr, target_sr)

@@ -12,15 +12,22 @@ entry points at full width with the committed zoo weights:
 - one stage-2 training step of the flagship at [16, 8192] in bf16
   (``train.stage2.train_step``; ``train.flagship.flagship_config``, G from
   the zoo, D seeded, past the warmup gate; each call starts from the same
-  state).
+  state);
+- one stage-1 training step of the composer flagship at [16, 128, 128]
+  (``train.stage1.train_step``; ``train.flagship.stage1_flagship_config``).
 
 For each it prints the wall time per call, the summed kernel time and the
 kernel launches per call, the device-busy share of the window (summed
 kernel time over wall time; overlapping kernels would count twice, and the
 port runs one stream), and the kernels that took the most device time.
-The profiler adds host time to every launch, so the wall time here is
-above the unprofiled one (``chip_smoke.py`` times the step with CUDA
-events). Needs a CUDA card.
+For each training step it also prints the split by named region (the JAX
+step's ``jax.named_scope`` names, ``utils/profiling.py``): per region the
+host ms, the device ms and kernel launches of the work launched inside it,
+and its top kernels, per step; regions nest as in the JAX step (``d_step``
+holds ``disc_*`` and ``r1_penalty``, ``g_step`` the G side), so a parent's
+numbers include its children's. The profiler adds host time to every
+launch, so the wall time here is above the unprofiled one
+(``chip_smoke.py`` times the step with CUDA events). Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from __future__ import annotations
 import argparse
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -50,8 +58,9 @@ def profile(name: str, fn, steps: int, top: int = 12) -> None:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
+    from music_synthesis_tpu_torch.utils.profiling import device_events
+
+    events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events) // steps
     print(f"[{name}] {steps} calls, wall {wall / steps * 1e3:.3f} ms per call, "
@@ -61,6 +70,33 @@ def profile(name: str, fn, steps: int, top: int = 12) -> None:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{name}]   {e.self_device_time_total / steps / 1e3:9.4f} ms/call "
               f"x{e.count // steps:<4d} {e.key[:90]}")
+
+
+def print_regions(name: str, split: dict) -> None:
+    """One line per region of ``region_split``'s table."""
+    for region, row in split.items():
+        top = "; ".join(f"{k} {v:.3f} ms" for k, v in row["top"])
+        print(f"[{name}] {region:16s} host {row['host_ms']:9.3f} ms, device "
+              f"{row['device_ms']:9.3f} ms, {row['launches']:8.1f} launches"
+              f" | {top}")
+
+
+def profile_regions(name: str, fn, names: list[str], steps: int) -> dict:
+    """``region_split`` of ``steps`` calls of ``fn`` under ``trace``, after
+    one traced call that it drops."""
+    from music_synthesis_tpu_torch.utils.profiling import (TRACE_FILE,
+                                                           region_split, trace)
+
+    fn()
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            for _ in range(steps + 1):
+                fn()
+        split = region_split(Path(tmp) / TRACE_FILE, names, calls=steps,
+                             skip=1)
+    print_regions(name, split)
+    return split
 
 
 def main() -> int:
@@ -101,6 +137,27 @@ def main() -> int:
             lambda: stage2.train_step(cfg, state, x), args.steps, top=20)
     print(f"[train step [16, 8192]] peak memory "
           f"{torch.cuda.max_memory_allocated()} B")
+
+    from music_synthesis_tpu_torch.train import stage1
+    from music_synthesis_tpu_torch.train.flagship import stage1_flagship_config
+    from music_synthesis_tpu_torch.utils.profiling import step_regions
+
+    profile_regions("train step [16, 8192] by region",
+                    lambda: stage2.train_step(cfg, state, x),
+                    step_regions(cfg, 2), args.steps)
+    entry1 = zoo.load_pretrained("specgan_flux")
+    cfg1 = stage1_flagship_config(entry1)
+    state1 = zoo_train_state(cfg1, entry1)
+    s1 = cfg1.specgan
+    mel = torch.from_numpy(rng.standard_normal(
+        (cfg1.train.batch_size, s1.n_frames, s1.n_mels)).astype(
+            np.float32)).cuda()
+    profile(f"stage-1 step [{cfg1.train.batch_size}, {s1.n_frames}, "
+            f"{s1.n_mels}]", lambda: stage1.train_step(cfg1, state1, mel),
+            args.steps)
+    profile_regions("stage-1 step by region",
+                    lambda: stage1.train_step(cfg1, state1, mel),
+                    step_regions(cfg1, 1), args.steps)
     return 0
 
 

@@ -75,7 +75,7 @@ def test_wav_io_and_resampling_match(tmp_path):
     assert sr == 44100 and got.dtype == np.float32
     np.testing.assert_array_equal(got, jax_wav.read_wav(tmp_path / "a.wav")[1])
     np.testing.assert_array_equal(
-        wav.load_wav(tmp_path / "a.wav", 22050),
+        wav.load_wav(tmp_path / "a.wav", 22050, use_native=False),
         jax_wav.load_wav(tmp_path / "a.wav", 22050, use_native=False))
 
 

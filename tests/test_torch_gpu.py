@@ -29,7 +29,11 @@ ranks sharing the card (``--dp jit``, 1 row each, fp32 with TF32 off, the
 "exact" kernel) against the single-process step on both rows, 5e-5
 relative on the losses and 3e-4 on the gradient norms (``TRAIN_TOL``);
 sequence-sharded vocoding over ``[cuda, cuda]`` against one call on the
-card, in the interior, 2e-3.
+card, in the interior, 2e-3; a vocoder artifact's card program against the
+live module on the card, 2e-3 (fp32 with cuDNN's default TF32
+convolutions, which may pick other algorithms for the exported graph's
+decomposed ops); ``extract_features`` on the card (the "exact" kernel,
+one launch) against the plain version evaluated in float64, 2e-4.
 """
 
 import numpy as np
@@ -407,3 +411,49 @@ def test_seqshard_vocode_on_the_card(cuda):
     h = receptive_field_frames(voc.cfg) + 2
     mid = slice(h * voc.cfg.hop_length, -h * voc.cfg.hop_length)
     assert (got[:, mid] - want[:, mid]).abs().max().item() <= 2e-3
+
+
+def test_vocoder_artifact_on_the_card_matches_live(cuda, tmp_path):
+    import dataclasses
+
+    from music_synthesis_tpu_torch import deploy
+    from music_synthesis_tpu_torch.config import TINY
+    from music_synthesis_tpu_torch.models.vocoder import Vocoder
+
+    cfg = dataclasses.replace(TINY.vocoder, head="istft",
+                              upsample_factors=(8, 8), istft_n_fft=16,
+                              istft_hop=4, init_scheme="he", out_init_gain=0.1)
+    voc = Vocoder(cfg, torch.Generator().manual_seed(0)).eval()
+    voc.requires_grad_(False)
+    exported, meta = deploy.vocoder_artifact(
+        voc.state_dict(), cfg, n_frames=16, batch=None,
+        platforms=("cuda", "cpu"))
+    path = deploy.save_artifact(tmp_path / "voc.msx", exported, meta)
+    assert deploy.read_meta(path)["platforms"] == ["cuda", "cpu"]
+    art = deploy.load_artifact(path)
+    assert art.device.type == "cuda"
+    live = voc.to(cuda)
+    for b in (1, 4):
+        mel = _signal((b, 16, cfg.n_mels), seed=b).to(cuda)
+        with torch.inference_mode():
+            got, want = art(mel), live(mel)
+        assert got.is_cuda and got.shape == want.shape
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-3)
+
+
+def test_extract_features_on_the_card_matches_plain(cuda, tmp_path):
+    from music_synthesis_tpu_torch.config import FRONTEND_CPU_CLIP
+    from music_synthesis_tpu_torch.data.dataset import make_synthetic_corpus
+    from music_synthesis_tpu_torch.scripts import extract_features
+    from music_synthesis_tpu_torch.utils.wav import load_wav
+
+    clip = make_synthetic_corpus(tmp_path, n_clips=1, seconds=4.0)[0]
+    before = L.logmel_kernel.n_launches
+    got = extract_features.main([str(clip), "--out", str(tmp_path / "m.npy")])
+    assert L.logmel_kernel.n_launches == before + 1
+    cfg = FRONTEND_CPU_CLIP.frontend
+    wav = torch.from_numpy(load_wav(clip, cfg.sample_rate))[None].to(cuda)
+    padded, n_frames = L.padded_input(wav, cfg, False)
+    want = L.log_mel_frames_plain(padded.double(), cfg, n_frames).cpu().numpy()
+    assert got.shape == want.shape == (1, 341, 128)
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOL)
