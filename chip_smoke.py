@@ -141,12 +141,23 @@ at the flagship's full width with the committed zoo weights, in phases:
    module's; and one flagship stage-2 step and one stage-1 step under
    ``utils.profiling.trace``: every JAX region name of the config's step
    in the trace, and host ms, device ms and launches per region;
-11. the ``kernels`` JSON line (printed after phase 13).
+14. the benchmark scripts (main path), in process: every scenario of
+   ``python -m music_synthesis_tpu_torch.bench`` at full width with a few
+   calls or steps each (``BENCH_SMOKE_ITERS``), its record in phases
+   8-13's directory: one stdout line, the contract line, that parses;
+   every key of ``bench.RESULT_KEYS`` in the record, finite and positive;
+   each stage-2 recipe's MFU in (0, 1.05]; the kernel launched once per
+   stage-2 step and kernel-vs-plain call the bench counts, and in no
+   other scenario; ``bench_rtf_batch --batches 8,16`` (``BENCH_SWEEP_CALLS``);
+   ``bench_serve --requests 8 --concurrency 4`` at 5 and 0 ms of
+   coalescing: every request answered, p50 <= p95, a merge ratio of 1.0
+   at 0 ms and >= 1.0 at 5 ms;
+11. the ``kernels`` JSON line (printed after phase 14).
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
-and again around each of phases 6, 7, 8, 9 and 10 (and around phase 10's
-``eval_checkpoint --run``) and around phase 13's ``extract_features`` and
-``eval_stage1``; phase 12's ranks read theirs around their steps.
+and again around each of phases 6, 7, 8, 9, 10 and 14 (and around phase
+10's ``eval_checkpoint --run``) and around phase 13's ``extract_features``
+and ``eval_stage1``; phase 12's ranks read theirs around their steps.
 Any failed check raises, so the exit code is non-zero and no result line is
 printed. The last line is ``{"ok": true, "device": {...}}``.
 Needs a CUDA card; exits non-zero without one. Starts no process other than
@@ -276,6 +287,16 @@ EVAL_GAP_FACTOR = {"dist": 2.0, "jitter": 2.0, "mcd_db": 2.0, "rms_ratio": 2.0,
                    "gl_dist": 4.0}
 EVAL_TOL = {k: EVAL_GAP_FACTOR[k] * v for k, v in EVAL_CPU_GAPS.items()}
 
+# Phase 14: the n-call runs of the bench's scenarios, cut to a few calls at
+# full width (the kernel-vs-plain scenario's calls take about 0.1 ms, so it
+# keeps enough of them to stand above the host clock's noise).
+BENCH_SMOKE_ITERS = {"bench_inference_rtf": 5, "bench_waveform_head": 5,
+                     "bench_refined_rtf": 5, "bench_stage2_step": 3,
+                     "bench_stage1_fwd_loss": 5, "bench_frontend_cpu_clip": 3,
+                     "bench_frontend_ab": 50}
+# bench_rtf_batch's --calls at batch 16 for about a second per timed run.
+BENCH_SWEEP_CALLS = 100
+
 
 def log(*parts) -> None:
     print(*parts, flush=True)
@@ -314,10 +335,11 @@ def logmel_bound_ms(batch: int, padded_len: int, n_frames: int, cfg) -> dict:
     rDFT and mel GEMMs as three TF32 tensor-core passes (the least an
     fp32-accurate product takes on the tensor cores). ``bound_ms`` and
     ``bound_by`` are the tensor-core bound's."""
+    from music_synthesis_tpu_torch.ops.logmel import logmel_gemm_flops
+
     n_bins = cfg.n_fft // 2 + 1
     rows = batch * n_frames
-    gemm = (2 * rows * cfg.n_fft * 2 * n_bins          # frames @ [C | S]
-            + 2 * rows * n_bins * cfg.n_mels)           # power @ mel
+    gemm = logmel_gemm_flops(batch, n_frames, cfg)  # frames @ [C | S], @ mel
     flops = (gemm
              + 3 * rows * n_bins                         # re^2 + im^2
              + 2 * rows * cfg.n_mels)                    # log(eps + .)
@@ -2264,6 +2286,79 @@ def phase_port_modules(rng: np.random.Generator, tmp: Path,
     return out
 
 
+def captured(fn, *args) -> tuple:
+    """``fn(*args)``'s result and its stdout lines (printed here too)."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(*args)
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        log(line)
+    return result, lines
+
+
+def phase_benchmark(tmp: Path) -> dict:
+    """Phase 14: the bench's every scenario at full width with a few calls
+    each (``BENCH_SMOKE_ITERS``), the RTF batch sweep at batches 8 and 16,
+    and the serving load test at 5 and 0 ms of coalescing, with their
+    checks; returns the record, the sweep, the serving lines and the
+    bench's kernel launches by scenario."""
+    from music_synthesis_tpu_torch import bench
+    from music_synthesis_tpu_torch.scripts import bench_rtf_batch, bench_serve
+
+    out = tmp / "bench_torch_full.json"
+    rc, lines = captured(bench.main, ["--out", str(out)], {
+        name: {"n_iters": n} for name, n in BENCH_SMOKE_ITERS.items()})
+    record = json.loads(out.read_text())
+    check(rc == 0 and not record["failed"],
+          f"bench exit {rc}, failed scenarios {record['failed']}")
+    check(len(lines) == 1, f"bench printed {len(lines)} stdout lines")
+    contract = json.loads(lines[-1])
+    check(set(contract) == {"metric", "value", "unit", "device",
+                            "power_limit_w"}, f"contract line {contract}")
+    results = record["results"]
+    check(contract["metric"] == "fused_two_stage_inference_rtf"
+          and contract["value"] == results["fused_two_stage_inference_rtf"]
+          and contract["device"] == torch.cuda.get_device_name(0),
+          f"contract line {contract}")
+    missing = [k for k in bench.RESULT_KEYS if k not in results]
+    check(not missing, f"the bench's record misses {missing}")
+    bad = {k: v for k, v in results.items()
+           if not (isinstance(v, (int, float)) and np.isfinite(v) and v > 0)}
+    check(not bad, f"bench keys not finite and positive: {bad}")
+    mfu = {k: v for k, v in results.items() if k.endswith("_mfu")}
+    check(len(mfu) == 2 and all(0 < v <= 1.05 for v in mfu.values()),
+          f"MFU out of (0, 1.05]: {mfu}")
+    launches = record["notes"]["logmel_launches"]
+    check(launches["bench_stage2_step"] == results["stage2_steps_run"]
+          and launches["bench_frontend_ab"] == results["frontend_kernel_calls"]
+          and sum(launches.values()) == launches["bench_stage2_step"]
+          + launches["bench_frontend_ab"],
+          f"bench kernel launches {launches} against its steps and calls")
+    log(f"[bench] {json.dumps(results)}")
+    log(f"[bench] MFU precision {record['notes']} on {card_name_and_power()}")
+
+    sweep, _ = captured(bench_rtf_batch.main, [
+        "--batches", "8,16", "--calls", str(BENCH_SWEEP_CALLS)])
+    check([r["batch"] for r in sweep["sweep"]] == [8, 16]
+          and all(np.isfinite(r["rtf_per_chip"]) and r["rtf_per_chip"] > 0
+                  for r in sweep["sweep"]), f"RTF sweep {sweep}")
+    serving = {}
+    for ms in (5.0, 0.0):
+        line, _ = captured(bench_serve.main, [
+            "--requests", "8", "--concurrency", "4", "--coalesce-ms", str(ms)])
+        check(line["answered"] == line["service_requests"] == 8,
+              f"serving at {ms} ms answered {line['answered']} of 8")
+        check(line["merge_ratio"] == 1.0 if ms == 0 else
+              line["merge_ratio"] >= 1.0,
+              f"merge ratio {line['merge_ratio']} at {ms} ms")
+        check(0 < line["latency_p50_ms"] <= line["latency_p95_ms"],
+              f"serving latencies {line}")
+        serving[f"{ms:g}ms"] = line
+    return {"record": record, "sweep": sweep, "serving": serving,
+            "launches": launches}
+
+
 def cpu_gaps() -> dict:
     """The CPU's own max abs gaps between bf16 and fp32 at the default-path
     checks' inputs and weights: copy-synthesis (waveform and distance) and
@@ -2408,6 +2503,19 @@ def main() -> int:
             f"{launches['extract_features']}, eval_stage1 "
             f"{launches['eval_stage1']}")
 
+        log("== phase 14: benchmark scripts (main path)")
+        logmel_kernel.n_launches = 0
+        benchmark = phase_benchmark(Path(tmp))
+        launches["benchmark"] = logmel_kernel.n_launches
+        by_scenario = benchmark["launches"]
+        log(f"[main] kernel launches in the benchmark scripts: "
+            f"{launches['benchmark']} ({by_scenario})")
+        check(launches["benchmark"] == sum(by_scenario.values())
+              and by_scenario["bench_stage2_step"] > 0
+              and by_scenario["bench_frontend_ab"] > 0,
+              "the benchmark scripts launch the kernel only in the stage-2 "
+              "and kernel-vs-plain scenarios")
+
     log("== phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
@@ -2451,7 +2559,11 @@ def main() -> int:
                              "dp_train_step": launches["dp_train"],
                              "dp_single_step": launches["dp_single"],
                              "extract_features": launches["extract_features"],
-                             "eval_stage1": launches["eval_stage1"]},
+                             "eval_stage1": launches["eval_stage1"],
+                             "bench_stage2_step":
+                                 by_scenario["bench_stage2_step"],
+                             "bench_frontend_ab":
+                                 by_scenario["bench_frontend_ab"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
@@ -2465,6 +2577,7 @@ def main() -> int:
                "eval_and_clis": evals,
                "data_parallel": dp,
                "port_modules": modules,
+               "benchmark": benchmark,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

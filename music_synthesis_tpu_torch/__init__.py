@@ -8,7 +8,9 @@ Entry points (``serve.SynthService`` and ``serve.make_server``,
 music_synthesis_tpu_torch.scripts.{train_stage1, train_stage2,
 train_two_stage, export_zoo, serve, generate, vocode, eval_checkpoint,
 make_corpus, extract_features, eval_stage1, parity, average_ckpts,
-export_deploy}``) run on ``cuda`` unless the caller passes ``device="cpu"``
+export_deploy, bench_rtf_batch, bench_serve}`` and ``python -m
+music_synthesis_tpu_torch.bench``, the benchmark harness) run on ``cuda``
+unless the caller passes ``device="cpu"``
 (``--device cpu``; ``make_corpus`` runs on the host only, and
 ``export_deploy`` traces on each device of ``--platforms``). Data
 parallelism (``parallel/``) runs training over ``torch.distributed``

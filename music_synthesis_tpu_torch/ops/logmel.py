@@ -60,6 +60,7 @@ __all__ = [
     "log_mel_frames_plain",
     "log_mel_plain",
     "log_mel_for_vocoder_plain",
+    "logmel_gemm_flops",
     "padded_input",
 ]
 
@@ -243,6 +244,16 @@ def log_mel_frames_plain(padded: torch.Tensor, cfg: FrontendConfig,
     if cfg.power == 1.0:
         power = torch.sqrt(power)
     return torch.log(cfg.log_epsilon + power @ m)
+
+
+def logmel_gemm_flops(batch: int, n_frames: int, cfg: FrontendConfig) -> int:
+    """Operations of one call's two GEMMs, ``frames @ [C | S]`` and
+    ``power @ mel`` over every bin, at 2 per multiply-add: what the plain
+    version's matmuls count, and the tensor-core bound's operations."""
+    n_bins = cfg.n_fft // 2 + 1
+    rows = batch * n_frames
+    return (2 * rows * cfg.n_fft * 2 * n_bins
+            + 2 * rows * n_bins * cfg.n_mels)
 
 
 def padded_input(wav: torch.Tensor, cfg: FrontendConfig, for_vocoder: bool,

@@ -220,8 +220,10 @@ def launch(fn: Callable, world: int, args: tuple = (), *,
     rank's return value (``torch.save``-able, loaded onto the CPU), in
     rank order.
 
-    ``devices``: rank r's device (default: ``cuda:r`` when a card is
-    visible, else the CPU); ranks may share a device. ``backend``:
+    ``devices``: rank r's device (default: ``device_list(world)``,
+    ``cuda:0`` .. ``cuda:world-1``, which raises before any rank starts
+    when fewer cards are visible; the CPU only when named); ranks may share
+    a device. ``backend``:
     ``backend_for`` the first device unless named (``nccl`` refuses two
     ranks on one device; ``gloo`` takes CUDA tensors through the host).
     ``fn`` must be importable by name (a module-level function), and the
@@ -231,12 +233,7 @@ def launch(fn: Callable, world: int, args: tuple = (), *,
     """
     import torch.multiprocessing as mp
 
-    if devices is None:
-        devices = (["cuda:%d" % r for r in range(world)]
-                   if torch.cuda.is_available() else ["cpu"] * world)
-    devices = [str(torch.device(d)) for d in devices]
-    if len(devices) != world:
-        raise ValueError(f"{len(devices)} devices for {world} ranks")
+    devices = [str(d) for d in device_list(world, devices=devices)]
     backend = backend or backend_for(devices[0])
     threads = max(1, torch.get_num_threads() // world)
     with tempfile.TemporaryDirectory(prefix="ranks_") as out_dir:

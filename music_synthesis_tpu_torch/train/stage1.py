@@ -62,8 +62,8 @@ from music_synthesis_tpu_torch.train.state import (
     make_optimizer,
 )
 
-__all__ = ["make_models", "make_train_state", "forward_and_loss",
-           "train_step"]
+__all__ = ["make_models", "make_train_state", "forward_losses",
+           "forward_and_loss", "train_step"]
 
 
 def make_models(cfg: PipelineConfig,
@@ -105,10 +105,9 @@ def _device(state: GANState) -> torch.device:
     return next(iter(state.g_params.values())).device
 
 
-def forward_and_loss(cfg: PipelineConfig, state: GANState, real_mel,
-                     z) -> dict[str, float]:
-    """G forward and the hinge losses on ``real_mel`` and ``G(z)``, with no
-    update."""
+def forward_losses(cfg: PipelineConfig, state: GANState, real_mel,
+                   z) -> dict[str, torch.Tensor]:
+    """``forward_and_loss`` with the losses left on the device."""
     gen, disc = _modules(cfg)
     dev = _device(state)
     with torch.no_grad():
@@ -117,8 +116,15 @@ def forward_and_loss(cfg: PipelineConfig, state: GANState, real_mel,
         fake = functional_call(gen, state.g_params, (z,))
         real_logit, _ = functional_call(disc, state.d_params, (real,))
         fake_logit, _ = functional_call(disc, state.d_params, (fake,))
-        return _floats({"d_loss": hinge_d_loss(real_logit, fake_logit),
-                        "g_loss": hinge_g_loss(fake_logit)})
+        return {"d_loss": hinge_d_loss(real_logit, fake_logit),
+                "g_loss": hinge_g_loss(fake_logit)}
+
+
+def forward_and_loss(cfg: PipelineConfig, state: GANState, real_mel,
+                     z) -> dict[str, float]:
+    """G forward and the hinge losses on ``real_mel`` and ``G(z)``, with no
+    update."""
+    return _floats(forward_losses(cfg, state, real_mel, z))
 
 
 def _flux_profile(x: torch.Tensor) -> torch.Tensor:

@@ -380,11 +380,12 @@ def test_every_module_imports_without_jax():
     names = set(out.stdout.split())
     for cli in ("train_stage1", "train_stage2", "export_zoo",
                 "train_two_stage", "extract_features", "eval_stage1",
-                "parity", "average_ckpts", "export_deploy"):
+                "parity", "average_ckpts", "export_deploy",
+                "bench_rtf_batch", "bench_serve"):
         assert f"music_synthesis_tpu_torch.scripts.{cli}" in names
     for mod in ("train.stage1", "data.dataset", "data.prefetch", "data.stats",
                 "train.guard", "train.metrics", "utils.wav", "zoo",
                 "parallel.mesh", "parallel.multihost", "parallel.dp",
                 "parallel.shard_map_dp", "parallel.seqshard", "data.native",
-                "data.musicnet", "utils.profiling", "deploy"):
+                "data.musicnet", "utils.profiling", "deploy", "bench"):
         assert f"music_synthesis_tpu_torch.{mod}" in names

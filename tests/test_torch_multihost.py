@@ -88,6 +88,23 @@ def test_rank_device_never_falls_back_to_the_cpu(no_torchrun):
         torch.device("cpu")] * 2
 
 
+def test_launch_without_devices_never_runs_on_the_cpu(monkeypatch):
+    """``mesh.launch`` without ``devices`` takes ``cuda:0`` .. and, with no
+    card, raises before it starts any rank; the CPU only when named (the
+    gloo groups of ``test_torch_parallel`` launch that way)."""
+    import torch.multiprocessing as mp
+
+    def no_spawn(*args, **kwargs):
+        raise AssertionError("a rank was started")
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(mp, "start_processes", no_spawn)
+    with pytest.raises(RuntimeError, match="2 CUDA devices asked for, 0"):
+        mesh.launch(print, 2, ())
+    with pytest.raises(ValueError, match="1 devices given for 2"):
+        mesh.launch(print, 2, (), devices=["cpu"])
+
+
 def test_cli_under_another_world_size_exits(no_torchrun, tmp_path, capsys):
     no_torchrun.setenv("WORLD_SIZE", "2")
     with pytest.raises(SystemExit) as e:
