@@ -152,10 +152,35 @@ at the flagship's full width with the committed zoo weights, in phases:
    ``bench_serve --requests 8 --concurrency 4`` at 5 and 0 ms of
    coalescing: every request answered, p50 <= p95, a merge ratio of 1.0
    at 0 ms and >= 1.0 at 5 ms;
-11. the ``kernels`` JSON line (printed after phase 14).
+15. CUDA graphs (main path): each graphed program against its eager
+   launches (``_graphs.disable_graphs``) at the widths the phases above
+   run: ``generate`` at batch 16 over the flagship pair (``specgan_flux``
+   fp32, ``vocoder_istft`` bf16), every bucket and both stream calls of a
+   fresh flagship ``SynthService`` (fp32, on its worker thread),
+   copy-synthesis at [16, 8192] (``vocoder_istft`` bf16, the log-mel
+   kernel inside the graph) and the stage-1 flagship step at [16, 128,
+   128]: eager and graphed ms per call (CUDA events, median of 21),
+   launches per call and the device's busy share under both
+   (``torch.profiler``), the graph pool's bytes; for the first four max
+   |graphed - eager| must not exceed max |eager - eager| over three eager
+   calls on the same input (the card's own run-to-run gap); five graphed
+   stage-1 steps from one state must match five eager ones within
+   ``STAGE1_TOL``, printed beside two eager runs' gap; 10 replays of the
+   copy-synthesis graph must raise ``logmel_kernel.n_launches`` by 10;
+11. the ``kernels`` JSON line (printed after phase 15).
+
+On the card the entry points replay CUDA graphs (``_graphs.py``): phases
+3-4 (copy-synthesis, serving), 5, 7 (the single-process stage-1 step), 8
+(``train_stage1``, the exported pair's service), 9 (every service, its
+buckets and streams, ``/reload``'s new service), 10 (``eval_checkpoint``,
+``vocode``, ``generate``), 13's ``eval_checkpoint --run`` and 14 (the RTF,
+stage-1 and serving scenarios) run through them; the stage-2 step, the DP
+steps and the kernel's own checks launch eagerly. A graph's warm-up and
+capture build it and count no kernel launch; each replay counts the
+launches its capture recorded.
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
-and again around each of phases 6, 7, 8, 9, 10 and 14 (and around phase
+and again around each of phases 6, 7, 8, 9, 10, 14 and 15 (and around phase
 10's ``eval_checkpoint --run``) and around phase 13's ``extract_features``
 and ``eval_stage1``; phase 12's ranks read theirs around their steps.
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -2359,6 +2384,225 @@ def phase_benchmark(tmp: Path) -> dict:
             "launches": launches}
 
 
+def _outputs(out) -> list:
+    """A path's outputs (a tensor or a tuple), copied out as fp32."""
+    outs = out if isinstance(out, (tuple, list)) else (out,)
+    return [t.detach().float().clone() for t in outs]
+
+
+def _gap(a: list, b: list) -> float:
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def graphed_against_eager(label: str, call, pool_bytes) -> dict:
+    """One path's program on fixed inputs (``call()``, no host read inside),
+    eager (``disable_graphs``) and graphed: three eager outputs (the card's
+    own run-to-run gap is the largest difference between two of them), two
+    graphed ones (the first call builds the graph when it is not built
+    yet), each held to the first eager one; ms per call (``time_ms``),
+    launches per call and the device's busy share (``profile_launches``)
+    under both; ``pool_bytes()`` after. max |graphed - eager| must not
+    exceed the eager gap."""
+    from music_synthesis_tpu_torch._graphs import disable_graphs
+
+    with torch.inference_mode():
+        with disable_graphs():
+            eager = [_outputs(call()) for _ in range(3)]
+            eager_ms = time_ms(call)
+            eager_prof = profile_launches(call)
+        graphed = [_outputs(call()) for _ in range(2)]
+        graphed_ms = time_ms(call)
+        graphed_prof = profile_launches(call)
+    floor = max(_gap(eager[i], eager[j]) for i, j in ((0, 1), (0, 2), (1, 2)))
+    gap = max(_gap(g, eager[0]) for g in graphed)
+    out = {"eager_ms": eager_ms, "graphed_ms": graphed_ms,
+           "launches_per_eager_call": eager_prof["launches_per_call"],
+           "launches_per_graphed_call": graphed_prof["launches_per_call"],
+           "busy_eager": eager_prof["device_busy"],
+           "busy_graphed": graphed_prof["device_busy"],
+           "pool_bytes": pool_bytes(),
+           "max_graphed_vs_eager": gap, "max_eager_vs_eager": floor}
+    log(f"[graphs] {label}: eager {eager_ms:.4f} ms, graphed "
+        f"{graphed_ms:.4f} ms per call (CUDA events, median of 21); "
+        f"{out['launches_per_eager_call']:.0f} launches per eager call "
+        f"({out['launches_per_graphed_call']:.0f} traced per replay); busy "
+        f"{out['busy_eager']:.3f} eager, {out['busy_graphed']:.3f} graphed; "
+        f"pool {out['pool_bytes']} B; max |graphed - eager| {gap:.3g}, "
+        f"max |eager - eager| {floor:.3g}")
+    check(gap <= floor, f"{label}: graphed vs eager {gap} > the card's own "
+          f"eager run-to-run gap {floor}")
+    return out
+
+
+def phase_cuda_graphs(rng: np.random.Generator) -> dict:
+    """Phase 15: each graphed path against its eager launches (main path;
+    the caller zeroes the launch counts before and reads them after)."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch._graphs import disable_graphs, pool_bytes
+    from music_synthesis_tpu_torch.config import E2E_INFERENCE
+    from music_synthesis_tpu_torch.infer.copy_synthesis import CopySynthesizer
+    from music_synthesis_tpu_torch.infer.generate import (
+        GraphedPipeline, generate, generate_long)
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
+    from music_synthesis_tpu_torch.train import stage1
+    from music_synthesis_tpu_torch.train.flagship import (
+        stage1_flagship_config, zoo_train_state)
+
+    out = {}
+    # Path 1: generate, the flagship pair (specgan_flux fp32, vocoder_istft
+    # bf16) at batch 16.
+    comp_e = zoo.load_pretrained("specgan_flux")
+    voc_e = zoo.load_pretrained("vocoder_istft")
+    cfg = dataclasses.replace(
+        E2E_INFERENCE, specgan=comp_e.config,
+        vocoder=dataclasses.replace(voc_e.config, compute_dtype="bfloat16"),
+        mel_scaler=voc_e.mel_scaler or E2E_INFERENCE.mel_scaler,
+        frontend=voc_e.frontend or E2E_INFERENCE.frontend)
+    pipe = GraphedPipeline(cfg, comp_e.model("cuda", "float32"),
+                           voc_e.model("cuda", "bfloat16"))
+    z = torch.from_numpy(rng.standard_normal(
+        (16, cfg.specgan.latent_dim)).astype(np.float32)).cuda()
+    out["generate"] = graphed_against_eager(
+        "generate [16, 128] (specgan_flux fp32, vocoder_istft bf16)",
+        lambda: pipe(generate, z), pipe.programs.pool_bytes)
+
+    # Paths 2-3: every serving bucket and both stream calls of the
+    # flagship service (fp32), on its worker thread.
+    t0 = time.perf_counter()
+    svc = SynthService(ServeConfig(composer="specgan_flux",
+                                   vocoder="vocoder_istft"))
+    warm_s = time.perf_counter() - t0
+    progs = svc.programs[svc.device]
+    out["serving_warm_s"] = warm_s
+    out["serving_pool_bytes"] = progs.pool_bytes()
+    out["serving_graphs"] = len(progs.programs)
+    log(f"[graphs] service loaded and captured {len(progs.programs)} graphs "
+        f"in {warm_s:.2f} s; its pool holds {out['serving_pool_bytes']} B")
+    try:
+        for b in svc.serve_cfg.batch_buckets:
+            for n in svc.serve_cfg.patch_buckets:
+                zb = torch.from_numpy(rng.standard_normal(
+                    (b, n, svc.cfg.specgan.latent_dim)).astype(
+                        np.float32)).to(svc.device)
+                out[f"serve_b{b}_p{n}"] = svc._on_device(
+                    graphed_against_eager, f"serving bucket ({b}, {n})",
+                    lambda zb=zb: svc._pipelines[0](
+                        generate_long, zb, svc.serve_cfg.crossfade_frames),
+                    progs.pool_bytes)
+        ic = svc.cfg.infer
+        z1 = torch.from_numpy(rng.standard_normal(
+            (1, svc.cfg.specgan.latent_dim)).astype(np.float32)).cuda()
+        with torch.inference_mode():
+            mel = svc.composer(z1)[:, : ic.chunk_frames].float().clone()
+        for name, module, x in (("stream patch", svc.composer, z1),
+                                ("stream chunk", svc.vocoder, mel)):
+            out[name.replace(" ", "_")] = svc._on_device(
+                graphed_against_eager, f"{name} {list(x.shape)}",
+                lambda m=module, x=x: progs((m,), m, x), progs.pool_bytes)
+        out["serving_pool_bytes_after"] = progs.pool_bytes()
+    finally:
+        svc.close()
+
+    # Path 4: copy-synthesis at [16, 8192] (vocoder_istft in the card's
+    # bf16): the log-mel kernel inside the graph, one launch per replay.
+    cs = CopySynthesizer("vocoder_istft")
+    wav = torch.from_numpy(test_audio(rng, 16, 8192,
+                                      cs.frontend.sample_rate)).cuda()
+    out["copy_synthesis"] = graphed_against_eager(
+        "copy-synthesis [16, 8192] (vocoder_istft bf16)",
+        lambda: cs.programs(cs.precision, cs._body, wav),
+        cs.programs.pool_bytes)
+    before = logmel_kernel.n_launches
+    with torch.inference_mode():
+        for _ in range(10):
+            cs.programs(cs.precision, cs._body, wav)
+    torch.cuda.synchronize()
+    after = logmel_kernel.n_launches
+    out["copy_synthesis"]["kernel_launches_over_10_replays"] = after - before
+    log(f"[graphs] logmel_kernel.n_launches before and after 10 replays of "
+        f"the copy-synthesis graph: {before} -> {after}")
+    check(after - before == 10, "10 replays of the copy-synthesis graph did "
+          "not count 10 launches of the log-mel kernel")
+
+    # Path 5: the stage-1 flagship step at [16, 128, 128]: five graphed
+    # steps from one state against five eager ones (STAGE1_TOL), beside the
+    # gap between two eager runs of the same five steps.
+    entry = zoo.load_pretrained("specgan_flux")
+    cfg1 = stage1_flagship_config(entry)
+    state0 = zoo_train_state(cfg1, entry, "cuda", seed=cfg1.train.seed)
+    mel1 = stage1_patches(rng, cfg1, "cuda")
+
+    def five(graphs: bool) -> tuple[list[dict], list]:
+        st, metrics = state0, []
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            for _ in range(5):
+                st, m = stage1.train_step(cfg1, st, mel1)
+                metrics.append(m)
+        return metrics, [_outputs([g[k] for k in sorted(g)])
+                         for g in stage1._groups(st)]
+
+    (eager_a, sa), (eager_b, sb), (graphed, sg) = (five(False), five(False),
+                                                   five(True))
+    names = ("G", "D", "G Adam mu", "G Adam nu", "D Adam mu", "D Adam nu",
+             "EMA")
+    state_gaps = {name: {"graphed_vs_eager": _gap(g, a),
+                         "eager_vs_eager": _gap(b, a)}
+                  for name, a, b, g in zip(names, sa, sb, sg)}
+    log("[graphs] stage-1 flagship, the state after 5 steps, max |graphed "
+        "- eager| (max |eager - eager|): " + ", ".join(
+            f"{k} {v['graphed_vs_eager']:.3g} ({v['eager_vs_eager']:.3g})"
+            for k, v in state_gaps.items()))
+    kinds = {k: kind for names, kind in ((STAGE1_LOSSES, "loss"),
+                                         (TRAIN_GRAD_NORMS, "grad_norm"))
+             for k in names}
+
+    def rel(a, b):
+        return {k: max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                       for x, y in zip(a, b)) for k in kinds}
+
+    rel_graphed, rel_eager = rel(graphed, eager_a), rel(eager_b, eager_a)
+    log("[graphs] stage-1 flagship, 5 steps, graphed vs eager |diff| / "
+        "|eager|: " + ", ".join(f"{k} {v:.3g}"
+                                for k, v in rel_graphed.items()))
+    log("[graphs] stage-1 flagship, 5 steps, eager vs eager: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in rel_eager.items()))
+    for k, kind in kinds.items():
+        check(rel_graphed[k] <= STAGE1_TOL[kind],
+              f"graphed stage-1 step: {k} {rel_graphed[k]:.3g} from the "
+              f"eager step > {STAGE1_TOL[kind]}")
+    holder = {"state": state0}
+
+    def step():
+        holder["state"], _ = stage1.train_step(cfg1, holder["state"], mel1)
+
+    with disable_graphs():
+        eager_ms = time_ms(step, warmup=2)
+        eager_prof = profile_launches(step)
+    graphed_ms = time_ms(step, warmup=2)
+    graphed_prof = profile_launches(step)
+    program = stage1.graphed_step(cfg1, mel1.shape, mel1.device).program
+    s1 = {"eager_ms": eager_ms, "graphed_ms": graphed_ms,
+          "launches_per_eager_call": eager_prof["launches_per_call"],
+          "launches_per_graphed_call": graphed_prof["launches_per_call"],
+          "busy_eager": eager_prof["device_busy"],
+          "busy_graphed": graphed_prof["device_busy"],
+          "pool_bytes": pool_bytes(program.pool, mel1.device),
+          "rel_graphed_vs_eager": rel_graphed,
+          "rel_eager_vs_eager": rel_eager, "state_max_abs": state_gaps}
+    log(f"[graphs] stage-1 step [16, 128, 128]: eager {eager_ms:.3f} ms, "
+        f"graphed {graphed_ms:.3f} ms per step (CUDA events, median of 21, "
+        f"with the metrics' host read); {s1['launches_per_eager_call']:.0f} "
+        f"launches per eager step ({s1['launches_per_graphed_call']:.0f} "
+        f"traced per replay); busy {s1['busy_eager']:.3f} eager, "
+        f"{s1['busy_graphed']:.3f} graphed; pool {s1['pool_bytes']} B")
+    out["stage1_step"] = s1
+    log(f"[graphs] on {card_name_and_power()}")
+    return out
+
+
 def cpu_gaps() -> dict:
     """The CPU's own max abs gaps between bf16 and fp32 at the default-path
     checks' inputs and weights: copy-synthesis (waveform and distance) and
@@ -2516,6 +2760,14 @@ def main() -> int:
               "the benchmark scripts launch the kernel only in the stage-2 "
               "and kernel-vs-plain scenarios")
 
+    log("== phase 15: CUDA graphs against eager launches (main path)")
+    logmel_kernel.n_launches = 0
+    graphs = phase_cuda_graphs(rng)
+    launches["cuda_graphs"] = logmel_kernel.n_launches
+    log(f"[main] kernel launches in phase 15: {launches['cuda_graphs']}")
+    check(launches["cuda_graphs"] > 0,
+          "phase 15 never launched the log-mel kernel")
+
     log("== phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
@@ -2563,7 +2815,8 @@ def main() -> int:
                              "bench_stage2_step":
                                  by_scenario["bench_stage2_step"],
                              "bench_frontend_ab":
-                                 by_scenario["bench_frontend_ab"]},
+                                 by_scenario["bench_frontend_ab"],
+                             "cuda_graphs": launches["cuda_graphs"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
@@ -2578,6 +2831,7 @@ def main() -> int:
                "data_parallel": dp,
                "port_modules": modules,
                "benchmark": benchmark,
+               "cuda_graphs": graphs,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

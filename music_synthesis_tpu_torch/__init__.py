@@ -15,7 +15,10 @@ unless the caller passes ``device="cpu"``
 ``export_deploy`` traces on each device of ``--platforms``). Data
 parallelism (``parallel/``) runs training over ``torch.distributed``
 ranks and inference over a list of devices in one process; ``deploy``
-exports the inference paths through ``torch.export``.
+exports the inference paths through ``torch.export``. On the card the
+inference programs and the single-process stage-1 step replay one CUDA
+graph per shape (``_graphs.py``), as the reference runs one compiled
+program per shape; on the CPU they run eagerly.
 
 The one TPU kernel of the reference, the fused log-mel front-end, is a
 hand-written CUDA kernel here (``csrc/logmel.cu``, wrapped by

@@ -16,3 +16,19 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
         raise RuntimeError(
             "no CUDA device is available; pass device='cpu' to run on the CPU")
     return dev
+
+
+def capturing() -> bool:
+    """Whether the current CUDA stream is capturing a CUDA graph."""
+    return (torch.cuda.is_available()
+            and torch.cuda.is_current_stream_capturing())
+
+
+def refuse_capture(what: str) -> None:
+    """Raises while a CUDA graph is captured. Called where a cache of device
+    tensors fills: one filled during a capture would hold memory of the
+    graph's pool, which later replays overwrite (``_graphs``' eager warm-up
+    fills every such cache before it captures)."""
+    if capturing():
+        raise RuntimeError(f"{what}: cache of device tensors missed during "
+                           "a CUDA graph capture")

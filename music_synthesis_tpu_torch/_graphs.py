@@ -1,0 +1,208 @@
+"""CUDA graphs of the port's fixed-shape programs (the reference's ``jit``).
+
+The JAX package runs each public program as one compiled XLA program per
+static shape, dispatched in one call. The port's counterpart is one CUDA
+graph per shape: ``GraphedProgram`` runs its function eagerly a few times
+on a side stream (which fills every cache of device constants, loads the
+kernel library and makes cuDNN's and cuFFT's choices), captures one call
+with ``torch.cuda.graph``, and from then on copies each call's inputs into
+its static input buffers, replays the graph and returns its static
+outputs. ``Programs`` keeps one such program per key and input shapes.
+
+- Graphs run on CUDA devices only. A call site decides by the device
+  (``enabled``): on the CPU it runs its function eagerly, as before, and
+  ``GraphedProgram`` refuses a non-CUDA device. Nothing falls back: a
+  capture or a replay that fails raises.
+- The outputs are the graph's buffers, overwritten by the next replay of
+  any graph of the same pool. A caller that keeps one, or hands it to a
+  user, clones it or copies it to the host first.
+- A graph reads the tensors its function read at capture where they lay
+  then: module parameters updated in place (``load_state_dict``, an
+  optimizer's in-place step) are seen by the next replay; parameters
+  replaced by new tensors are not.
+- The switches that choose kernels (cuDNN's and cuBLAS's TF32 and
+  reduced-precision flags, ``flags()``) are baked in at capture; they are
+  part of every key, so a call under other switches captures its own graph.
+- ``ops/logmel.py``'s ``logmel_kernel.n_launches`` counts the launches of
+  calls: a replay adds the launches its capture recorded. The warm-up's
+  eager launches and the capture build the program (as the reference's
+  first call compiles its program) and are taken back out of the count.
+- ``disable_graphs()`` runs the entry points eagerly on the card too, as
+  ``jax.disable_jit()`` does for the reference: to time the eager
+  launches beside the graphs, and to compare the two.
+"""
+
+from __future__ import annotations
+
+import contextlib
+
+import torch
+
+from music_synthesis_tpu_torch._device import capturing
+from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+
+__all__ = ["GraphedProgram", "Programs", "disable_graphs", "enabled",
+           "flags", "pool_bytes"]
+
+_disabled = 0  # open disable_graphs() blocks
+WARMUP = 2  # eager calls before a capture
+
+
+@contextlib.contextmanager
+def disable_graphs():
+    """Within the block, ``enabled`` is False for every device, in every
+    thread of the process (a service's worker thread included)."""
+    global _disabled
+    _disabled += 1
+    try:
+        yield
+    finally:
+        _disabled -= 1
+
+
+def enabled(device: torch.device | str) -> bool:
+    """Whether a call on ``device`` replays a graph: on a CUDA device,
+    outside ``disable_graphs()``, anomaly detection (whose checks read the
+    device), another graph's capture (the outer graph captures the call)
+    and ``torch.compile`` / ``torch.export`` tracing."""
+    return (torch.device(device).type == "cuda" and _disabled == 0
+            and not torch.is_anomaly_enabled()
+            and not torch.compiler.is_compiling()
+            and not capturing())
+
+
+def flags() -> tuple:
+    """The process's switches that choose the kernels a graph captures."""
+    matmul = torch.backends.cuda.matmul
+    return (torch.backends.cudnn.enabled, torch.backends.cudnn.allow_tf32,
+            torch.backends.cudnn.deterministic,
+            torch.backends.cudnn.benchmark, matmul.allow_tf32,
+            matmul.allow_fp16_reduced_precision_reduction,
+            matmul.allow_bf16_reduced_precision_reduction,
+            torch.get_float32_matmul_precision())
+
+
+class GraphedProgram:
+    """``fn(*inputs)`` as one CUDA graph for one set of input shapes.
+
+    ``fn`` takes tensors and returns a tensor or a tuple or dict of
+    tensors, all on ``device``, and makes no host synchronisation. The
+    first call builds the program: static input buffers on ``device``, the
+    eager warm-up (``WARMUP`` calls on a side stream), the capture (into
+    ``pool``, a ``torch.cuda.graph_pool_handle()`` shared with other
+    programs, else a pool of its own). Every call copies its inputs (on
+    any device, of the first call's shapes) into the buffers, replays, and
+    returns the static outputs.
+
+    ``mutates``: tensors ``fn`` updates in place (a training step's state).
+    The warm-up's updates to them are undone before the first replay, so
+    each call updates them once.
+    """
+
+    def __init__(self, fn, device: torch.device | str, pool=None,
+                 mutates=()):
+        device = torch.device(device)
+        if device.type != "cuda":
+            raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        self.fn, self.device, self.pool = fn, device, pool
+        self.mutates = list(mutates)
+        self.graph: torch.cuda.CUDAGraph | None = None
+        self.launches_per_replay = 0
+        self._inputs: list[torch.Tensor] = []
+        self._outputs = None
+
+    def _build(self, args) -> None:
+        with torch.inference_mode(False):
+            self._inputs = [torch.empty(a.shape, dtype=a.dtype,
+                                        device=self.device) for a in args]
+        for buf, a in zip(self._inputs, args):
+            buf.copy_(a)
+        saved = [t.clone() for t in self.mutates]
+        count = logmel_kernel.n_launches
+        main = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP):
+                self.fn(*self._inputs)
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        mark = logmel_kernel.n_launches
+        with torch.cuda.graph(graph, pool=self.pool,
+                              capture_error_mode="thread_local"):
+            self._outputs = self.fn(*self._inputs)
+        self.launches_per_replay = logmel_kernel.n_launches - mark
+        logmel_kernel.n_launches = count  # building is not a call
+        if self.mutates:
+            torch._foreach_copy_(self.mutates, saved)
+        self.pool = graph.pool()
+        self.graph = graph
+        self.fn = None  # the graph holds what the capture read
+
+    def __call__(self, *args):
+        with torch.cuda.device(self.device):
+            if self.graph is None:
+                self._build(args)
+            elif len(args) != len(self._inputs) or any(
+                    a.shape != b.shape for a, b in zip(args, self._inputs)):
+                raise ValueError(
+                    f"inputs {[tuple(a.shape) for a in args]} differ from "
+                    f"the captured {[tuple(b.shape) for b in self._inputs]}")
+            for buf, a in zip(self._inputs, args):
+                buf.copy_(a)
+            self.graph.replay()
+        logmel_kernel.n_launches += self.launches_per_replay
+        return self._outputs
+
+
+def _shapes(args) -> tuple:
+    return tuple((tuple(a.shape), a.dtype) for a in args)
+
+
+class Programs:
+    """One ``GraphedProgram`` per (key, input shapes and dtypes,
+    ``flags()``) on one device, all in one memory pool, built at first use.
+
+    ``programs(key, fn, *inputs)`` returns ``fn(*inputs)``: eagerly when
+    ``enabled(device)`` is False (on the CPU), else by replaying the
+    program of that key, built from ``fn`` at the first such call. So
+    ``key`` must name everything ``fn`` reads besides its inputs (the
+    modules, the static arguments). The programs replay one at a time:
+    every output is used or copied before the next call.
+    """
+
+    def __init__(self, device: torch.device | str):
+        self.device = torch.device(device)
+        self.pool = None
+        self.programs: dict[tuple, GraphedProgram] = {}
+
+    def __call__(self, key, fn, *inputs):
+        if not enabled(self.device) or any(
+                type(a) is not torch.Tensor for a in inputs):
+            return fn(*inputs)  # the CPU, or a fake or traced input
+        full = (key, _shapes(inputs), flags())
+        program = self.programs.get(full)
+        if program is None:
+            if self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            program = GraphedProgram(fn, self.device, self.pool)
+            self.programs[full] = program
+        return program(*inputs)
+
+    def pool_bytes(self) -> int | None:
+        """Device bytes the shared pool holds (``pool_bytes``)."""
+        return None if self.pool is None else pool_bytes(self.pool,
+                                                         self.device)
+
+
+def pool_bytes(pool, device: torch.device | str) -> int:
+    """Bytes of the segments the caching allocator holds for ``pool`` (a
+    ``graph_pool_handle()`` or ``CUDAGraph.pool()``) on ``device``."""
+    device = torch.device(device)
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == index
+               and tuple(seg.get("segment_pool_id", ())) == tuple(pool))

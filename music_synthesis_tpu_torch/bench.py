@@ -27,9 +27,13 @@ name, its numbers under the JAX script's keys:
 
 Method (the JAX scenarios' estimator): a run makes ``n`` calls, each on
 fresh inputs drawn on the device from a ``torch.Generator`` seeded for the
-run, sums a device-side checksum of every call (``sum |wav|``, the summed
-losses) and reads it once, after the last call; the host clock measures
-the run, as a user of the eager port waits on it. The time per call is
+run (on a card the inference and stage-1 calls replay CUDA graphs, as the
+JAX scenarios time jitted programs: the fresh input's copy into the
+graph's input buffer is part of the call; the same runs with the graphs
+disabled follow, their time on stderr), sums a device-side checksum of
+every call (``sum |wav|``, the summed losses) and reads it once, after the
+last call; the host clock measures the run, as a user of the port waits
+on it. The time per call is
 ``(t_n - t_1) / (n - 1)`` of a 1-call and an n-call run, the least over
 the repeats of the pairs that give a positive difference, after one
 warm-up pair. The CUDA-event time of each run, the device's busy share
@@ -66,12 +70,17 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils.flop_counter import FlopCounterMode
 
 from music_synthesis_tpu_torch._device import resolve_device
+from music_synthesis_tpu_torch._graphs import Programs, disable_graphs
 from music_synthesis_tpu_torch.config import (
     E2E_INFERENCE,
     E2E_INFERENCE_FAST,
     PipelineConfig,
 )
-from music_synthesis_tpu_torch.infer.generate import generate, generate_refined
+from music_synthesis_tpu_torch.infer.generate import (
+    GraphedPipeline,
+    generate,
+    generate_refined,
+)
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.ops.logmel import (
@@ -85,7 +94,8 @@ from music_synthesis_tpu_torch.train import stage1, stage2
 from music_synthesis_tpu_torch.utils.profiling import device_events
 
 __all__ = ["DEFAULT_OUT", "PEAK_FLOPS", "ITERS", "RESULT_KEYS", "Env",
-           "card_record", "per_call_s", "inference_models",
+           "card_record", "per_call_s", "graphed_and_eager_s",
+           "inference_models",
            "generate_checksum", "stage1_checksum", "stage2_variants",
            "step_flops", "conv_precision", "bench_inference_rtf",
            "bench_waveform_head", "bench_refined_rtf", "bench_stage2_step",
@@ -267,19 +277,47 @@ def inference_models(cfg: PipelineConfig, env: Env):
     return composer.to(env.device).eval(), vocoder.to(env.device).eval()
 
 
+def _wav_abs_sum(cfg: PipelineConfig, composer, vocoder, z: torch.Tensor,
+                 n_gl: int) -> torch.Tensor:
+    wav = (generate_refined(cfg, composer, vocoder, z, n_gl) if n_gl
+           else generate(cfg, composer, vocoder, z))
+    return wav.float().abs().sum()
+
+
 def generate_checksum(cfg: PipelineConfig, composer, vocoder,
-                      z: torch.Tensor, n_gl: int = 0) -> torch.Tensor:
+                      z: torch.Tensor, n_gl: int = 0,
+                      pipe: GraphedPipeline | None = None) -> torch.Tensor:
     """One call of the inference loops: ``sum |wav|`` of ``generate`` (or
-    ``generate_refined`` with ``n_gl`` projections) on latents ``z``."""
+    ``generate_refined`` with ``n_gl`` projections) on latents ``z``;
+    through ``pipe`` (a ``GraphedPipeline`` of the same modules: on a card
+    the replay of one CUDA graph, ``z`` copied into its input buffer) if
+    given, else eagerly. The sum is a device scalar (``pipe``'s is its
+    graph's buffer: add it up before the next call)."""
+    if pipe is not None:
+        return pipe(_wav_abs_sum, z, n_gl)
     with torch.inference_mode():
-        wav = (generate_refined(cfg, composer, vocoder, z, n_gl) if n_gl
-               else generate(cfg, composer, vocoder, z))
-        return wav.float().abs().sum()
+        return _wav_abs_sum(cfg, composer, vocoder, z, n_gl)
+
+
+def graphed_and_eager_s(label: str, env: Env, many: Callable, n_iters: int,
+                        repeats: int = 3, positive: bool = False) -> float:
+    """``per_call_s`` of ``many``, whose calls replay CUDA graphs on a card
+    (the reference times jitted programs); on a card the same runs with
+    the graphs disabled follow, their time on a stderr line."""
+    best = per_call_s(label, env, many, n_iters, repeats, positive)
+    if env.device.type == "cuda":
+        with disable_graphs():
+            eager = per_call_s(f"{label} eager", env, many, n_iters, repeats,
+                               positive)
+        log(f"[{label}] graphed {best * 1e3:.4f} ms/call, eager "
+            f"{eager * 1e3:.4f} ms/call on {env.card['card']}")
+    return best
 
 
 def _rtf(results: dict, env: Env, key: str, cfg: PipelineConfig,
          batch: int, n_iters: int, repeats: int, n_gl: int = 0) -> None:
     composer, vocoder = inference_models(cfg, env)
+    pipe = GraphedPipeline(cfg, composer, vocoder)
     samples = batch * cfg.specgan.n_frames * cfg.vocoder.hop_length
     audio_sec = samples / cfg.frontend.sample_rate
 
@@ -288,10 +326,12 @@ def _rtf(results: dict, env: Env, key: str, cfg: PipelineConfig,
         for _ in range(n):
             z = torch.randn((batch, cfg.specgan.latent_dim), generator=gen,
                             device=env.device)
-            total = total + generate_checksum(cfg, composer, vocoder, z, n_gl)
+            total = total + generate_checksum(cfg, composer, vocoder, z, n_gl,
+                                              pipe)
         return total
 
-    best = per_call_s(key, env, many, n_iters, repeats, positive=True)
+    best = graphed_and_eager_s(key, env, many, n_iters, repeats,
+                               positive=True)
     results[key] = audio_sec / best
     log(f"[{key}] batch {batch}, {audio_sec:.3f} audio-s per call: "
         f"{best * 1e3:.4f} ms/call -> real-time factor {audio_sec / best:.1f} "
@@ -463,22 +503,27 @@ def bench_stage1_fwd_loss(results: dict, env: Env,
                           ) -> None:
     """Stage-1 generator forward and hinge losses on one batch
     (``PipelineConfig()``: 16 x 128 frames x 128 mels), fresh latents each
-    call, against a fixed uniform real batch."""
+    call, against a fixed uniform real batch; on a card one CUDA graph."""
     cfg = PipelineConfig() if cfg is None else cfg
     b, s = cfg.train.batch_size, cfg.specgan
     state = stage1.make_train_state(cfg, env.seed, env.device)
     real = torch.rand((b, s.n_frames, s.n_mels), generator=env.generator(-3),
                       device=env.device) * 2.0 - 1.0
 
+    programs = Programs(env.device)
+
+    def checksum(z: torch.Tensor) -> torch.Tensor:
+        return stage1_checksum(cfg, state, real, z)
+
     def many(n: int, gen: torch.Generator) -> torch.Tensor:
         total = torch.zeros((), device=env.device)
         for _ in range(n):
             z = torch.randn((b, s.latent_dim), generator=gen,
                             device=env.device)
-            total = total + stage1_checksum(cfg, state, real, z)
+            total = total + programs("stage1", checksum, z)
         return total
 
-    best = per_call_s("stage1_fwd_loss", env, many, n_iters)
+    best = graphed_and_eager_s("stage1_fwd_loss", env, many, n_iters)
     results["stage1_fwd_loss_ms"] = best * 1e3
     log(f"[stage1_fwd_loss] {best * 1e3:.4f} ms/batch{b} on "
         f"{env.card['card']}")

@@ -4,12 +4,18 @@
 -> waveform``. Chunks fold into the batch axis, so the vocoder sees one
 batch. The composer and vocoder are ``nn.Module``s built from the configs in
 ``cfg`` (``models/specgan.py``, ``models/vocoder.py``).
+
+The functions run eagerly. ``GraphedPipeline`` is the counterpart of the
+reference's ``generate_jit`` (and of the ``jax.jit`` of each variant in its
+scripts): on a card, one CUDA graph per (function, static arguments, z's
+shape).
 """
 
 from __future__ import annotations
 
 import torch
 
+from music_synthesis_tpu_torch._graphs import Programs
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
@@ -21,6 +27,7 @@ from music_synthesis_tpu_torch.ops.overlap_add import (
 )
 
 __all__ = [
+    "GraphedPipeline",
     "chunk_frames",
     "vocode_chunked",
     "generate",
@@ -129,3 +136,31 @@ def generate_long_refined(cfg: PipelineConfig, composer: SpectrogramGenerator,
     mel_long = stitch_long_mel(cfg, composer, z, crossfade_frames)
     wav = vocode_chunked(vocoder, mel_long, cfg)
     return _refine(cfg, wav, mel_long, n_iter)
+
+
+class GraphedPipeline:
+    """A composer and a vocoder with their graphed programs.
+
+    ``pipe(fn, z, *static)`` returns ``fn(cfg, composer, vocoder, z,
+    *static)`` for ``fn`` one of this module's functions (``static``: its
+    ints, e.g. ``crossfade_frames``, ``n_iter``), under
+    ``torch.inference_mode``: eagerly on the CPU; on a card by replaying the
+    CUDA graph of (fn, static, z's shape), captured at its first call
+    (``_graphs.Programs``, in ``programs`` if given, shared with other
+    users of that pool). The result is then the graph's output buffer: use
+    it or copy it before the next call of any program of the pool.
+    """
+
+    def __init__(self, cfg: PipelineConfig, composer: SpectrogramGenerator,
+                 vocoder: Vocoder, programs: Programs | None = None):
+        self.cfg, self.composer, self.vocoder = cfg, composer, vocoder
+        self.programs = (Programs(next(vocoder.parameters()).device)
+                         if programs is None else programs)
+
+    def __call__(self, fn, z: torch.Tensor, *static) -> torch.Tensor:
+        def body(latents):
+            return fn(self.cfg, self.composer, self.vocoder, latents, *static)
+
+        with torch.inference_mode():
+            return self.programs(
+                (self.cfg, self.composer, self.vocoder, fn, static), body, z)

@@ -24,6 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from music_synthesis_tpu_torch._graphs import Programs
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
@@ -32,22 +33,31 @@ from music_synthesis_tpu_torch.ops.overlap_add import ola_window
 __all__ = ["StreamingSynth", "make_stream_fns"]
 
 
-def _forward(module: torch.nn.Module, x) -> np.ndarray:
-    dev = next(module.parameters()).device
-    with torch.inference_mode():
-        out = module(torch.as_tensor(np.asarray(x, np.float32)).to(dev))
-    return out.float().cpu().numpy()
-
-
-def make_stream_fns(cfg: PipelineConfig) -> tuple:
+def make_stream_fns(cfg: PipelineConfig,
+                    programs: Programs | None = None) -> tuple:
     """The two fixed-shape calls every stream makes:
     ``patch_fn(composer, z[B, Z]) -> mel`` and
     ``chunk_fn(vocoder, mel[B, chunk, M]) -> wav``, each the module's
     forward under ``torch.inference_mode`` on the module's device, taking
-    and returning numpy. ``cfg`` is the reference's signature: the modules
-    carry their configs here."""
+    and returning numpy. On a card each replays the CUDA graph of its
+    (module, input shape) (the reference jits both), held in ``programs``
+    if given (a ``_graphs.Programs`` on the modules' device), else in one
+    of these functions' own per device; only the device forward is
+    captured, the host copies go around it. ``cfg`` is the reference's
+    signature: the modules carry their configs here."""
     del cfg
-    return _forward, _forward
+    own: dict[torch.device, Programs] = {}
+
+    def forward(module: torch.nn.Module, x) -> np.ndarray:
+        dev = next(module.parameters()).device
+        progs = programs if programs is not None else own.setdefault(
+            dev, Programs(dev))
+        with torch.inference_mode():
+            out = progs((module,), module,
+                        torch.as_tensor(np.asarray(x, np.float32)).to(dev))
+            return out.float().cpu().numpy()
+
+    return forward, forward
 
 
 class StreamingSynth:

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from music_synthesis_tpu_torch._device import refuse_capture
 from music_synthesis_tpu_torch.config import FrontendConfig
 
 __all__ = [
@@ -142,9 +143,19 @@ def _power_to_log_mel(power: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:
         spec = torch.sqrt(torch.clamp(power, min=0.0))
     else:
         spec = torch.pow(torch.clamp(power, min=0.0), cfg.power / 2.0)
-    mel = torch.from_numpy(mel_matrix(cfg.sample_rate, cfg.n_fft, cfg.n_mels,
-                                      cfg.fmin, cfg.fmax_resolved))
-    return torch.log(cfg.log_epsilon + spec @ mel.to(power.device))
+    return torch.log(cfg.log_epsilon + spec @ _mel_tensor(cfg, power.device))
+
+
+@functools.lru_cache(maxsize=16)
+def _mel_tensor(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+    """``mel_matrix`` of ``cfg`` on ``device``, made once (a copy from the
+    host inside a captured CUDA graph is not allowed); a normal tensor even
+    when first asked for under inference mode, as istft's bases."""
+    refuse_capture("_mel_tensor")
+    with torch.inference_mode(False):
+        return torch.from_numpy(mel_matrix(
+            cfg.sample_rate, cfg.n_fft, cfg.n_mels, cfg.fmin,
+            cfg.fmax_resolved)).to(device)
 
 
 def log_mel(x: torch.Tensor, cfg: FrontendConfig) -> torch.Tensor:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from music_synthesis_tpu_torch._device import refuse_capture
 from music_synthesis_tpu_torch.config import FrontendConfig
 from music_synthesis_tpu_torch.ops.frontend import hann_window, mel_matrix, stft
 from music_synthesis_tpu_torch.ops.overlap_add import ola_normalizer, overlap_add
@@ -42,13 +43,22 @@ def mel_pinv_matrix(cfg: FrontendConfig) -> np.ndarray:
                         cfg.fmin, cfg.fmax_resolved)
 
 
+@functools.lru_cache(maxsize=8)
+def _pinv_tensor(cfg: FrontendConfig, device: torch.device) -> torch.Tensor:
+    # float64 on the device, made once (a copy from the host inside a
+    # captured CUDA graph is not allowed); a normal tensor, as istft's.
+    refuse_capture("_pinv_tensor")
+    with torch.inference_mode(False):
+        return torch.from_numpy(mel_pinv_matrix(cfg)).to(device).double()
+
+
 def log_mel_to_magnitude(logmel: torch.Tensor,
                          cfg: FrontendConfig) -> torch.Tensor:
     """Invert the front-end's compression: ``[.., T, n_mels] -> [.., T, F]``
     linear magnitude (undoing ``log_mel``'s eps and power)."""
     mel_lin = torch.clamp(torch.exp(logmel.float()) - cfg.log_epsilon, min=0.0)
-    pinv = torch.from_numpy(mel_pinv_matrix(cfg)).to(logmel.device)
-    spec = torch.clamp((mel_lin.double() @ pinv.double()).float(), min=0.0)
+    pinv = _pinv_tensor(cfg, logmel.device)
+    spec = torch.clamp((mel_lin.double() @ pinv).float(), min=0.0)
     if cfg.power == 2.0:
         return torch.sqrt(spec)
     if cfg.power == 1.0:

@@ -7,6 +7,7 @@ import functools
 import numpy as np
 import torch
 
+from music_synthesis_tpu_torch._device import refuse_capture
 from music_synthesis_tpu_torch.ops.frontend import hann_window
 from music_synthesis_tpu_torch.ops.overlap_add import ola_normalizer, overlap_add
 
@@ -34,6 +35,7 @@ def _irdft_tensors(n_fft: int, device: torch.device):
     # Normal tensors even when first asked for under inference_mode (as
     # copy-synthesis and serving run), so that a training step in the same
     # process can save them for its backward.
+    refuse_capture("_irdft_tensors")
     with torch.inference_mode(False):
         return tuple(torch.from_numpy(m).to(device)
                      for m in irdft_matrices(n_fft))

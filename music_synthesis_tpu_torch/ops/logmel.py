@@ -42,6 +42,7 @@ import numpy as np
 import torch
 
 from music_synthesis_tpu_torch import _build
+from music_synthesis_tpu_torch._device import refuse_capture
 from music_synthesis_tpu_torch.config import FrontendConfig
 from music_synthesis_tpu_torch.ops.frontend import (
     _pad_last,
@@ -91,6 +92,7 @@ def logmel_constants(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
     built in float64 and stored as float32 exactly as the reference's
     ``dft_matrices`` / ``mel_matrix``; ``n_used`` is one past the last bin
     with a non-zero mel weight (the kernel skips the bins after it)."""
+    refuse_capture("logmel_constants")
     c, s, m, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
     return (torch.from_numpy(c).to(device), torch.from_numpy(s).to(device),
             torch.from_numpy(m).to(device), n_used)
@@ -107,6 +109,7 @@ def fragment_bases(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
     ``8 nb + g``, so a thread reads its fragments of a k8 x n8 tile, cos and
     sin, as one 16-byte word. fp32, ~4.2 MB at n_fft 1024 (the kernel
     splits them into TF32 parts in registers)."""
+    refuse_capture("fragment_bases")
     c, s, _, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
     kp = -(-n_fft // TC_K_STEP) * TC_K_STEP
     bins = -(-n_used // TC_BINS) * TC_BINS
@@ -130,6 +133,7 @@ def mel_groups(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
     a non-zero weight in those bins; ``(2**30, -1)`` where there is none.
     The kernel's mel stage computes only these groups (mel filters are
     narrow: a 1024-point DFT's 64-bin chunks feed 1-2 groups of 128 mels)."""
+    refuse_capture("mel_groups")
     _, _, m, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
     out = []
     for b0 in range(0, n_used, TC_BINS):
@@ -168,7 +172,12 @@ class LogMelKernel:
     """ctypes binding of ``csrc/logmel.cu`` with a count of its launches.
 
     ``n_launches`` goes up by one each time the kernel is launched, and
-    nowhere else.
+    nowhere else: here for an eager launch, and in
+    ``_graphs.GraphedProgram`` for each replay of a CUDA graph that holds
+    the kernel (by the launches its capture recorded; the warm-up and the
+    capture that build a graph are taken back out of the count). The
+    launch is captured whole: the tile counters' ``cudaMemsetAsync`` and
+    the kernel on the current stream, the workspace from the graph's pool.
     """
 
     def __init__(self):

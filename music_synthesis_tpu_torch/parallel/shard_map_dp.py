@@ -31,7 +31,11 @@ def make_shardmap_stage2_step(cfg: PipelineConfig, group=None) -> Callable:
 
 
 def make_shardmap_stage1_step(cfg: PipelineConfig, group=None) -> Callable:
-    """Stage-1 twin: ``(state, mel [B/N, T, M], z=None, noise=None)``."""
+    """Stage-1 twin: ``(state, mel [B/N, T, M], z=None, noise=None)``.
+    Eager, also on a card: the single-process step's CUDA graph
+    (``stage1.GraphedStep``) does not apply, because the gradient
+    all-reduces go through ``torch.distributed`` (gloo's run on the host
+    and cannot be captured; NCCL graphs are not done yet)."""
     return make_dp_step(stage1.train_step, cfg, group, dp="shard_map")
 
 

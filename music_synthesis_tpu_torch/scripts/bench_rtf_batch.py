@@ -7,10 +7,11 @@ of ``scripts/bench_rtf_batch.py``).
 
 ``music_synthesis_tpu_torch.bench`` pins the headline at batch 16; this
 sweep measures where the card's throughput saturates. The method is the
-bench's (``bench.per_call_s``): n ``generate`` calls on fresh latents
-drawn on the device, one checksum read per run, the per-call time from
-the difference of a 1-call and an n-call run, the least over the repeats
-with the per > 0 filter. n is ``--calls`` at batch 16, scaled inversely
+bench's (``bench.graphed_and_eager_s``): n ``generate`` calls on fresh
+latents drawn on the device (on a card each the replay of one CUDA graph
+per batch, the eager time on stderr), one checksum read per run, the
+per-call time from the difference of a 1-call and an n-call run, the least
+over the repeats with the per > 0 filter. n is ``--calls`` at batch 16, scaled inversely
 with the batch so that each timed run does about the same work. Seeded
 random weights (the real-time factor does not depend on them); ``tiny``
 is a check of the harness on the CPU. Prints one JSON line,
@@ -28,11 +29,12 @@ import torch
 from music_synthesis_tpu_torch.bench import (
     Env,
     generate_checksum,
+    graphed_and_eager_s,
     inference_models,
     log,
-    per_call_s,
 )
 from music_synthesis_tpu_torch.config import E2E_INFERENCE_FAST, TINY
+from music_synthesis_tpu_torch.infer.generate import GraphedPipeline
 from music_synthesis_tpu_torch.scripts._run import cli_device
 
 PRESETS = {"fast": E2E_INFERENCE_FAST, "tiny": TINY}
@@ -59,6 +61,7 @@ def main(argv: list[str] | None = None) -> dict:
     env = Env(cli_device(ap, args.device))
     cfg = PRESETS[args.preset]
     composer, vocoder = inference_models(cfg, env)
+    pipe = GraphedPipeline(cfg, composer, vocoder)
     log(f"[bench_rtf_batch] {env.card['card']}, preset {args.preset}")
     rows = []
     for batch in (int(b) for b in args.batches.split(",")):
@@ -70,12 +73,13 @@ def main(argv: list[str] | None = None) -> dict:
             for _ in range(n):
                 z = torch.randn((_b, cfg.specgan.latent_dim), generator=gen,
                                 device=env.device)
-                total = total + generate_checksum(cfg, composer, vocoder, z)
+                total = total + generate_checksum(cfg, composer, vocoder, z,
+                                                  pipe=pipe)
             return total
 
         n_iters = max(5, (args.calls * 16) // batch + 1)
-        best = per_call_s(f"batch {batch}", env, many, n_iters, args.repeats,
-                          positive=True)
+        best = graphed_and_eager_s(f"batch {batch}", env, many, n_iters,
+                                   args.repeats, positive=True)
         rows.append({"batch": batch, "calls": n_iters,
                      "ms_per_call": best * 1e3,
                      "audio_sec_per_call": audio_sec,

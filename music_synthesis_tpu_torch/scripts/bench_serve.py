@@ -15,19 +15,23 @@ request, client side), and the device calls the service made for them
 line of the same numbers with the card's name and power limit. Run with
 ``--coalesce-ms 0`` for the baseline: the difference is what request
 merging buys on one card. The service runs its device work on one worker
-thread, so without coalescing requests queue behind each other. Runs on
-``cuda`` unless ``--device cpu`` is given.
+thread, so without coalescing requests queue behind each other. On a card
+its bucket programs replay CUDA graphs (captured at warm-up); the same
+load with the graphs disabled follows, its numbers on a stderr line. Runs
+on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 import threading
 import time
 
 import numpy as np
 
+from music_synthesis_tpu_torch._graphs import disable_graphs
 from music_synthesis_tpu_torch.bench import card_record
 from music_synthesis_tpu_torch.scripts._run import cli_device
 from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
@@ -73,50 +77,18 @@ def main(argv: list[str] | None = None) -> dict:
     card = card_record(svc.device)
     print(f"device: {svc.health()['device']} ({card['card']})", flush=True)
 
-    lat: list[float] = []
-    failed: list[str] = []
-    lock = threading.Lock()
-    sem = threading.Semaphore(args.concurrency)
-
-    def worker(i: int) -> None:
-        with sem:
-            t0 = time.perf_counter()
-            try:
-                wav, _ = svc.synth(seconds=args.seconds, seed=i,
-                                   target_rms=0.0)
-                error = (None if np.isfinite(wav).all()
-                         else "non-finite audio")
-            except Exception as e:  # noqa: BLE001 -- counted as failed
-                error = repr(e)
-            dt = time.perf_counter() - t0
-        with lock:
-            if error is None:
-                lat.append(dt)
-            else:
-                failed.append(f"request {i}: {error}")
-
     try:
-        t_start = time.perf_counter()
-        threads = [threading.Thread(target=worker, args=(i,))
-                   for i in range(args.requests)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(timeout=_JOIN_S)
-        wall = time.perf_counter() - t_start
-        if any(t.is_alive() for t in threads):
-            raise RuntimeError(f"requests still running after {_JOIN_S} s")
-        m = svc.metrics()
+        wall, lat, m = _load(svc, args)
+        if svc.device.type == "cuda":
+            # The same load with the graphs disabled, for the stderr line.
+            with disable_graphs():
+                e_wall, e_lat, _ = _load(svc, args)
     finally:
         svc.close()
-    if failed:
-        raise RuntimeError(f"{len(failed)} of {args.requests} requests "
-                           f"failed: {failed[:3]}")
 
-    lat.sort()
     n = len(lat)
     audio_s = args.requests * args.seconds
-    p50, p95 = lat[n // 2], lat[min(n - 1, int(n * 0.95))]
+    p50, p95 = _percentiles(lat)
     merge = m["requests"] / max(1, m["device_calls"])
     print(f"requests: {args.requests} @ concurrency {args.concurrency}, "
           f"coalesce {args.coalesce_ms} ms")
@@ -135,8 +107,66 @@ def main(argv: list[str] | None = None) -> dict:
             "device_calls": m["device_calls"],
             "service_requests": m["requests"], "merge_ratio": merge,
             **card}
+    if svc.device.type == "cuda":
+        e_p50, e_p95 = _percentiles(e_lat)
+        print(f"eager (graphs disabled): wall {e_wall:.3f}s, throughput "
+              f"{audio_s / e_wall:.1f} audio-sec/sec, latency p50 "
+              f"{e_p50 * 1e3:.2f} ms, p95 {e_p95 * 1e3:.2f} ms; graphed "
+              f"p50 {p50 * 1e3:.2f} ms, p95 {p95 * 1e3:.2f} ms on "
+              f"{card['card']}", file=sys.stderr, flush=True)
     print(json.dumps(line), flush=True)
     return line
+
+
+def _percentiles(lat: list[float]) -> tuple[float, float]:
+    """p50 and p95 of ``lat`` (sorted in place)."""
+    lat.sort()
+    n = len(lat)
+    return lat[n // 2], lat[min(n - 1, int(n * 0.95))]
+
+
+def _load(svc: SynthService, args) -> tuple[float, list[float], dict]:
+    """One closed-loop run of ``args.requests`` requests: ``(wall s,
+    latencies s, the service's metrics counted over the run)``; raises
+    when a request failed."""
+    lat: list[float] = []
+    failed: list[str] = []
+    lock = threading.Lock()
+    sem = threading.Semaphore(args.concurrency)
+    m0 = svc.metrics()
+
+    def worker(i: int) -> None:
+        with sem:
+            t0 = time.perf_counter()
+            try:
+                wav, _ = svc.synth(seconds=args.seconds, seed=i,
+                                   target_rms=0.0)
+                error = (None if np.isfinite(wav).all()
+                         else "non-finite audio")
+            except Exception as e:  # noqa: BLE001 -- counted as failed
+                error = repr(e)
+            dt = time.perf_counter() - t0
+        with lock:
+            if error is None:
+                lat.append(dt)
+            else:
+                failed.append(f"request {i}: {error}")
+
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=worker, args=(i,))
+               for i in range(args.requests)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=_JOIN_S)
+    wall = time.perf_counter() - t_start
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError(f"requests still running after {_JOIN_S} s")
+    if failed:
+        raise RuntimeError(f"{len(failed)} of {args.requests} requests "
+                           f"failed: {failed[:3]}")
+    m = svc.metrics()
+    return wall, lat, {k: m[k] - m0[k] for k in ("requests", "device_calls")}
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from music_synthesis_tpu_torch._graphs import Programs
 from music_synthesis_tpu_torch import zoo
 from music_synthesis_tpu_torch.config import (
     TINY,
@@ -158,12 +159,20 @@ def eval_body(args, cfg: PipelineConfig, vocoder: Vocoder, step: int,
     ref_dists, ref_jitters, gl_mcds = [], [], []
     gl_dists, gl_jitters = [], []
     clips = []
+    # Copy-synthesis and its distance, one CUDA graph on a card (the
+    # reference jits both): every clip has one shape.
+    programs = Programs(dev)
+
+    def copy_synth(x: torch.Tensor):
+        y = vocoder(stage2.conditioning_mel(x, cfg)).float()
+        return y, multires_stft_loss(y, x, cfg.stft_loss)
+
     for i in range(args.n_clips):
         # Held-out step indices far from any training step.
         real = ds.sample_batch(2**29 + i, 1, seed=1234)
         x = torch.from_numpy(real).to(dev)
-        y = vocoder(stage2.conditioning_mel(x, cfg)).float()
-        d = float(multires_stft_loss(y, x, cfg.stft_loss))
+        y, d = programs("copy", copy_synth, x)
+        y, d = y.clone(), float(d)
         per["dist"].append(d)
         per["jitter"].append(float(phase_jitter_ratio(
             y, x, n_fft=fe.n_fft, hop_length=fe.hop_length)))

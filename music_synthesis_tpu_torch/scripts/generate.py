@@ -187,28 +187,20 @@ def main(argv: list[str] | None = None) -> None:
             print(f"latent random walk: step {args.walk_step}")
         else:
             z = _normal(args.seed, (args.n, n_patches, zdim))
-        if args.gl_refine > 0:
-            def fn(zi):
-                return gen.generate_long_refined(
-                    cfg, composer, vocoder, zi, args.crossfade_frames,
-                    args.gl_refine)
-        else:
-            def fn(zi):
-                return gen.generate_long(cfg, composer, vocoder, zi,
-                                         args.crossfade_frames)
+        fn, static = ((gen.generate_long_refined,
+                       (args.crossfade_frames, args.gl_refine))
+                      if args.gl_refine > 0 else
+                      (gen.generate_long, (args.crossfade_frames,)))
     else:
         z = _normal(args.seed, (args.n, zdim))
-        if args.gl_refine > 0:
-            def fn(zi):
-                return gen.generate_refined(cfg, composer, vocoder, zi,
-                                            args.gl_refine)
-        else:
-            def fn(zi):
-                return gen.generate(cfg, composer, vocoder, zi)
+        fn, static = ((gen.generate_refined, (args.gl_refine,))
+                      if args.gl_refine > 0 else (gen.generate, ()))
+    # On a card one CUDA graph of (fn, z's shape), as the reference jits fn.
+    pipe = gen.GraphedPipeline(cfg, composer, vocoder)
 
     def call(zi: torch.Tensor) -> torch.Tensor:
         with torch.inference_mode():
-            out = fn(zi.to(dev)).float()
+            out = pipe(fn, zi.to(dev), *static).float().clone()
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         return out

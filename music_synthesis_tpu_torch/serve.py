@@ -15,7 +15,12 @@ device and answers ``synth(seconds, seed, n_clips)`` through
   concurrent requests of one patch bucket merge into one device call
   (clips are batch-independent, so merged audio equals solo audio);
 - ``stream_blocks`` streams unbounded durations through
-  ``infer/stream.py``'s two fixed-shape calls.
+  ``infer/stream.py``'s two fixed-shape calls;
+- on a card every bucket program and both stream calls replay CUDA graphs
+  (the reference compiles one program per bucket): ``warm_all`` captures
+  them on the worker thread, which alone replays them, into one memory
+  pool per device (``programs``, ``_graphs.Programs``); ``/reload``'s new
+  service captures its own. On the CPU they run eagerly.
 
 ``make_server`` puts the stdlib ``http.server`` in front: ``GET /healthz``,
 ``/models``, ``/metrics``; ``POST /generate`` -> ``audio/wav``, ``POST
@@ -58,12 +63,17 @@ import torch
 
 from music_synthesis_tpu_torch import zoo
 from music_synthesis_tpu_torch._device import resolve_device
+from music_synthesis_tpu_torch._graphs import Programs
 from music_synthesis_tpu_torch.config import E2E_INFERENCE, PipelineConfig
 from music_synthesis_tpu_torch.infer.generate import (
+    GraphedPipeline,
     generate_long,
     generate_long_refined,
 )
-from music_synthesis_tpu_torch.infer.stream import StreamingSynth
+from music_synthesis_tpu_torch.infer.stream import (
+    StreamingSynth,
+    make_stream_fns,
+)
 from music_synthesis_tpu_torch.parallel.mesh import device_list
 from music_synthesis_tpu_torch.utils.wav import write_wav
 
@@ -167,11 +177,16 @@ class SynthService:
         self.cfg = cfg
         self.composer_name, self.vocoder_name = composer.name, vocoder.name
         self._cards = {"composer": composer.card, "vocoder": vocoder.card}
-        # One replica of each model per device (the first serves streams).
+        # One replica of each model per device (the first serves streams),
+        # and the graphed programs of each, in one pool per device.
         self._replicas = [(composer.model(d, serve_cfg.compute_dtype),
                            vocoder.model(d, serve_cfg.compute_dtype))
                           for d in self.devices]
         self.composer, self.vocoder = self._replicas[0]
+        self.programs = {d: Programs(d) for d in self.devices}
+        self._pipelines = [GraphedPipeline(cfg, c, v, self.programs[d])
+                           for (c, v), d in zip(self._replicas, self.devices)]
+        self._stream_fns = make_stream_fns(cfg, self.programs[self.device])
         self._worker = ThreadPoolExecutor(max_workers=1,
                                           thread_name_prefix="msynth-device")
         self._m_lock = threading.Lock()
@@ -234,22 +249,21 @@ class SynthService:
     @torch.inference_mode()
     def _generate(self, z: torch.Tensor) -> np.ndarray:
         """The batch split evenly over the devices, each shard run on its
-        replica, the audio gathered on the first device."""
+        replica (on a card, the replay of its bucket's graph), the audio
+        gathered on the first device."""
         sc = self.serve_cfg
         outs = []
-        for (composer, vocoder), dev, zs in zip(
-                self._replicas, self.devices,
-                z.chunk(len(self.devices))):
+        for pipe, dev, zs in zip(self._pipelines, self.devices,
+                                 z.chunk(len(self.devices))):
             zs = zs.to(dev)
             if sc.gl_refine > 0:
-                wav = generate_long_refined(self.cfg, composer, vocoder, zs,
-                                            sc.crossfade_frames, sc.gl_refine)
+                wav = pipe(generate_long_refined, zs, sc.crossfade_frames,
+                           sc.gl_refine)
             else:
-                wav = generate_long(self.cfg, composer, vocoder, zs,
-                                    sc.crossfade_frames)
-            outs.append(wav.float())
-        wav = torch.cat([w.to(self.device) for w in outs])
-        return wav.cpu().numpy()
+                wav = pipe(generate_long, zs, sc.crossfade_frames)
+            # A copy: the next replay of the device's pool overwrites wav.
+            outs.append(wav.float().to(self.device, copy=True))
+        return torch.cat(outs).cpu().numpy()
 
     def _z_rows(self, seed: int, n_clips: int, n: int) -> torch.Tensor:
         """Per-request latent rows ``[n_clips, n, Z]`` (CPU, fp32)."""
@@ -274,7 +288,7 @@ class SynthService:
 
     def warm_all(self) -> list[tuple]:
         """Run every configured (batch, patches) bucket once, and the two
-        streaming calls."""
+        streaming calls: on a card this captures their graphs."""
         for b in self.serve_cfg.batch_buckets:
             for n in self.serve_cfg.patch_buckets:
                 self._run(torch.zeros((b, n, self.cfg.specgan.latent_dim)))
@@ -360,7 +374,7 @@ class SynthService:
         one-clip ``/generate``."""
         want, n = self.stream_samples(seconds)
         s = StreamingSynth(self.cfg, self.composer, self.vocoder,
-                           self.serve_cfg.crossfade_frames)
+                           self.serve_cfg.crossfade_frames, self._stream_fns)
         z = self._z_rows(seed, 1, n)
         sent = 0
         for i in range(n):

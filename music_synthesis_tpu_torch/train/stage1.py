@@ -25,6 +25,7 @@ both keys). The flux profiles are averaged over the ranks before the L1
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import torch
@@ -32,6 +33,7 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from music_synthesis_tpu_torch._device import resolve_device
+from music_synthesis_tpu_torch._graphs import GraphedProgram, enabled, flags
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.losses.gan import (
     d_loss_fn,
@@ -57,13 +59,14 @@ from music_synthesis_tpu_torch.train.stage2 import (
     reduce_metrics,
 )
 from music_synthesis_tpu_torch.train.state import (
+    AdamState,
     GANState,
     global_norm,
     make_optimizer,
 )
 
 __all__ = ["make_models", "make_train_state", "forward_losses",
-           "forward_and_loss", "train_step"]
+           "forward_and_loss", "GraphedStep", "graphed_step", "train_step"]
 
 
 def make_models(cfg: PipelineConfig,
@@ -132,20 +135,58 @@ def _flux_profile(x: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(torch.diff(x, dim=1)), dim=(0, 1))
 
 
-def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
-          group=None, dp: str = "shard_map"):
-    """One D and one G update; the metrics stay tensors on the device."""
-    t = cfg.train
-    gen, disc = _modules(cfg)
-    g_tx, d_tx = make_optimizer(t.g_lr, t), make_optimizer(t.d_lr, t)
-    dev = _device(state)
-    real = torch.as_tensor(real_mel, dtype=torch.float32, device=dev)
-
+def _draws(cfg: PipelineConfig, state: GANState, dev: torch.device, shape,
+           z, noise, group=None, dp: str = "shard_map"):
+    """``(rng, z, noise)``: the step's random inputs on ``dev``, drawn in
+    the step's order from a copy of ``state.rng`` (returned, advanced)
+    where not given: the latents ``[B, latent_dim]``, then with instance
+    noise three normals of the batch's ``shape`` (``noise`` is ``()``
+    without it)."""
     rng = _copy_generator(state.rng)
     draws = Draws(rng, group, dp)
     if z is None:
-        z = draws.normal((real.shape[0], cfg.specgan.latent_dim))
+        z = draws.normal((shape[0], cfg.specgan.latent_dim))
     z = torch.as_tensor(z, dtype=torch.float32, device=dev)
+    if cfg.train.d_input_noise <= 0:
+        return rng, z, ()
+    if noise is None:
+        noise = [draws.normal(shape) for _ in range(3)]
+    return rng, z, tuple(torch.as_tensor(n, dtype=torch.float32, device=dev)
+                         for n in noise)
+
+
+def _scalars(cfg: PipelineConfig, state: GANState) -> list[float]:
+    """The step's per-step fp32 scalars: the instance-noise sigma, then
+    ``(lr, bc1, bc2)`` of G's Adam and of D's (``Adam.scalars``)."""
+    t = cfg.train
+    return [noise_scale(cfg, state.step),
+            *make_optimizer(t.g_lr, t).scalars(state.g_opt.count),
+            *make_optimizer(t.d_lr, t).scalars(state.d_opt.count)]
+
+
+def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
+          group=None, dp: str = "shard_map"):
+    """One D and one G update; the metrics stay tensors on the device."""
+    dev = _device(state)
+    real = torch.as_tensor(real_mel, dtype=torch.float32, device=dev)
+    rng, z, noise = _draws(cfg, state, dev, real.shape, z, noise, group, dp)
+    g_params, d_params, g_opt, d_opt, g_ema, metrics = _update(
+        cfg, state, real, z, noise, _scalars(cfg, state), group, dp)
+    return GANState(step=state.step + 1, g_params=g_params,
+                    d_params=d_params, g_opt=g_opt, d_opt=d_opt, rng=rng,
+                    g_ema=g_ema), metrics
+
+
+def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
+            z: torch.Tensor, noise: tuple, scalars, group=None,
+            dp: str = "shard_map"):
+    """The step's arithmetic on given draws and ``_scalars`` (floats, or
+    0-d fp32 tensors): ``(g_params, d_params, g_opt, d_opt, g_ema,
+    metrics)``, new tensors; nothing is changed in place."""
+    t = cfg.train
+    gen, disc = _modules(cfg)
+    g_tx, d_tx = make_optimizer(t.g_lr, t), make_optimizer(t.d_lr, t)
+    sigma, g_scalars, d_scalars = scalars[0], scalars[1:4], scalars[4:7]
     g_names = list(state.g_params)
     g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
     with record_function("generator_fwd"):
@@ -156,12 +197,9 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
     # to the G step's fake, a fresh realisation, not the D step's.
     d_real_in, d_fake_in, g_noise = real, fake_sg, None
     if t.d_input_noise > 0:
-        if noise is None:
-            noise = [draws.normal(real.shape) for _ in range(3)]
-        n1, n2, n3 = (torch.as_tensor(n, dtype=torch.float32, device=dev)
-                      for n in noise)
-        s = noise_scale(cfg, state.step)
-        d_real_in, d_fake_in, g_noise = real + s * n1, fake_sg + s * n2, s * n3
+        n1, n2, n3 = noise
+        d_real_in, d_fake_in, g_noise = (real + sigma * n1,
+                                         fake_sg + sigma * n2, sigma * n3)
 
     # --- D step, on the detached fake ---
     d_names = list(state.d_params)
@@ -192,7 +230,7 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
             d_grads = all_reduce_mean(d_grads, group)
         d_grad_norm = global_norm(d_grads)
         d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
-                                      state.d_opt)
+                                      state.d_opt, d_scalars)
         d_update_norm = global_norm(d_updates)
         d_params = dict(zip(d_names, torch._foreach_add(
             list(state.d_params.values()), d_updates)))
@@ -231,7 +269,7 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
             g_grads = all_reduce_mean(g_grads, group)
         g_grad_norm = global_norm(g_grads)
         g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)),
-                                       state.g_opt)
+                                       state.g_opt, g_scalars)
         g_update_norm = global_norm(g_updates)
         g_params = dict(zip(g_names, torch._foreach_add(
             list(state.g_params.values()), g_updates)))
@@ -245,9 +283,6 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
                 list(g_params.values()), 1.0 - t.ema_decay))
             g_ema = dict(zip(g_names, ema))
 
-    new_state = GANState(step=state.step + 1, g_params=g_params,
-                         d_params=d_params, g_opt=g_opt, d_opt=d_opt,
-                         rng=rng, g_ema=g_ema)
     # Amplitude health in the normalized mel space, on the D step's fake.
     means = reduce_metrics(
         {"d_loss": d_loss.detach(), "g_loss": total.detach(),
@@ -259,7 +294,124 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
            **{k: means[k] for k in aux}, **{k: means[k] for k in metrics},
            "d_grad_norm": d_grad_norm, "g_grad_norm": g_grad_norm,
            "d_update_norm": d_update_norm, "g_update_norm": g_update_norm}
-    return new_state, out
+    return g_params, d_params, g_opt, d_opt, g_ema, out
+
+
+def _groups(state: GANState) -> list[dict[str, torch.Tensor]]:
+    """The state's tensors by group: G, D, both Adam moments, the EMA."""
+    groups = [state.g_params, state.d_params, state.g_opt.mu, state.g_opt.nu,
+              state.d_opt.mu, state.d_opt.nu]
+    return groups + ([state.g_ema] if state.g_ema is not None else [])
+
+
+def _update_in_place(cfg: PipelineConfig, state: GANState,
+                     real: torch.Tensor, z: torch.Tensor,
+                     scalars: torch.Tensor, *noise: torch.Tensor) -> dict:
+    """``_update`` on the 0-d tensors of ``scalars`` [7], its new values
+    written back into ``state``'s tensors; returns the metrics."""
+    g_params, d_params, g_opt, d_opt, g_ema, metrics = _update(
+        cfg, state, real, z, noise, scalars.unbind())
+    new = GANState(state.step, g_params, d_params, g_opt, d_opt, state.rng,
+                   g_ema)
+    olds, news = _groups(state), _groups(new)
+    torch._foreach_copy_([t for old in olds for t in old.values()],
+                         [nw[k] for old, nw in zip(olds, news) for k in old])
+    return metrics
+
+
+class GraphedStep:
+    """The single-process step in place, for one config and batch shape on
+    one device: on a CUDA device one CUDA graph (the reference's
+    ``jax.jit(train_step, donate_argnums=1)``), on the CPU the same
+    arithmetic run eagerly.
+
+    The state's tensors live in buffers this object owns: a call copies
+    the given state into them, unless it is the state the last call
+    returned, and returns a state whose tensors are those buffers, updated
+    in place. So, as with the reference's donated state, a state is no
+    longer valid once a later step has run from it or from any state of
+    the same buffers: copy what must outlive the step. The draws (latents,
+    instance noise) are made eagerly from the state's generator, in the
+    functional step's order, and the per-step scalars (the noise sigma,
+    each Adam's learning rate and bias corrections) are filled into 0-d
+    fp32 tensors before each call, so a call computes what ``_step``
+    computes, draw for draw.
+    """
+
+    def __init__(self, cfg: PipelineConfig, device: torch.device | str):
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.buffers: GANState | None = None
+        self.program = None
+
+    def _adopt(self, state: GANState) -> GANState:
+        if self.buffers is None:
+            with torch.no_grad():
+                self.buffers = dataclasses.replace(
+                    state,
+                    g_params=_clone(state.g_params),
+                    d_params=_clone(state.d_params),
+                    g_opt=AdamState(0, _clone(state.g_opt.mu),
+                                    _clone(state.g_opt.nu)),
+                    d_opt=AdamState(0, _clone(state.d_opt.mu),
+                                    _clone(state.d_opt.nu)),
+                    g_ema=(None if state.g_ema is None
+                           else _clone(state.g_ema)))
+            return self.buffers
+        for buf, given in zip(_groups(self.buffers), _groups(state)):
+            if given is not buf:
+                torch._foreach_copy_(list(buf.values()),
+                                     [given[k] for k in buf])
+        return self.buffers
+
+    def __call__(self, state: GANState, real_mel, z=None, noise=None
+                 ) -> tuple[GANState, dict[str, torch.Tensor]]:
+        """One step from ``state`` on ``real_mel`` (``z``, ``noise`` as in
+        ``train_step``); the metrics stay tensors (the graph's buffers on
+        the card: read them before the next call)."""
+        real = torch.as_tensor(real_mel, dtype=torch.float32)
+        rng, z, noise = _draws(self.cfg, state, self.device, real.shape, z,
+                               noise)
+        scalars = torch.tensor(_scalars(self.cfg, state), dtype=torch.float32)
+        buffers = self._adopt(state)
+        if self.device.type == "cuda":
+            if self.program is None:
+                self.program = GraphedProgram(
+                    functools.partial(_update_in_place, self.cfg, buffers),
+                    self.device,
+                    mutates=[t for g in _groups(buffers) for t in g.values()])
+            metrics = self.program(real, z, scalars, *noise)
+        else:
+            metrics = _update_in_place(self.cfg, buffers, real.to(self.device),
+                                       z, scalars, *noise)
+        return dataclasses.replace(
+            buffers, step=state.step + 1, rng=rng,
+            g_opt=AdamState(state.g_opt.count + 1, buffers.g_opt.mu,
+                            buffers.g_opt.nu),
+            d_opt=AdamState(state.d_opt.count + 1, buffers.d_opt.mu,
+                            buffers.d_opt.nu)), metrics
+
+
+def _clone(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in params.items()}
+
+
+#: The graphed steps of this process, by (config, batch shape, device,
+#: ``_graphs.flags()``); the oldest beyond _MAX_STEPS is dropped.
+_STEPS: dict[tuple, GraphedStep] = {}
+_MAX_STEPS = 4
+
+
+def graphed_step(cfg: PipelineConfig, shape, device: torch.device
+                 ) -> GraphedStep:
+    """The process's ``GraphedStep`` of ``cfg`` for batches of ``shape``
+    on ``device`` under the current ``_graphs.flags()``."""
+    key = (cfg, tuple(shape), device, flags())
+    step = _STEPS.pop(key, None) or GraphedStep(cfg, device)
+    _STEPS[key] = step
+    while len(_STEPS) > _MAX_STEPS:
+        del _STEPS[next(iter(_STEPS))]
+    return step
 
 
 def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
@@ -274,6 +426,18 @@ def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
     group of a data-parallel step, whose rank holds ``real_mel`` (and
     ``z``, ``noise``) as its rows of the global batch; ``dp`` says which
     reference step it follows (``train/stage2.py``'s docstring).
+
+    On a card a single-process step (no ``group``) replays the CUDA graph
+    of ``graphed_step``: the returned state's tensors are that graph's
+    buffers, and ``state`` is donated to it (``GraphedStep``). On the CPU,
+    and under data parallelism, the step runs eagerly and returns new
+    tensors.
     """
-    new_state, metrics = _step(cfg, state, real_mel, z, noise, group, dp)
+    dev = _device(state)
+    if group is None and enabled(dev):
+        real = torch.as_tensor(real_mel, dtype=torch.float32)
+        new_state, metrics = graphed_step(cfg, real.shape, dev)(
+            state, real, z, noise)
+    else:
+        new_state, metrics = _step(cfg, state, real_mel, z, noise, group, dp)
     return new_state, _floats(metrics)

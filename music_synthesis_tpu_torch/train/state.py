@@ -12,7 +12,9 @@ instance noise. The modules themselves are not in the state
 1``) operation for operation, in fp32, with ``torch._foreach_*``. The step
 and Adam counts are host integers, so the warmup gate, the learning-rate
 schedule and the bias corrections cost no device synchronisation; the
-scalars they give are rounded to fp32 as optax computes them.
+scalars they give are rounded to fp32 as optax computes them
+(``Adam.scalars``), and a step captured as a CUDA graph reads them from 0-d
+device tensors filled before each replay.
 """
 
 from __future__ import annotations
@@ -87,10 +89,23 @@ class Adam:
         return _f32(np.float32(self.lr)
                     * np.power(np.float32(self.decay_rate), p))
 
-    def update(self, named_grads: dict[str, torch.Tensor], state: AdamState
-               ) -> tuple[list[torch.Tensor], AdamState]:
+    def scalars(self, count: int) -> tuple[float, float, float]:
+        """``(lr, bc1, bc2)`` of the update after ``count`` updates: the
+        learning rate at ``count`` and both bias corrections at
+        ``count + 1``, fp32 values as optax computes them."""
+        b1, b2, t = np.float32(self.b1), np.float32(self.b2), np.float32(
+            count + 1)
+        return (self.learning_rate(count),
+                _f32(np.float32(1.0) - b1 ** t),
+                _f32(np.float32(1.0) - b2 ** t))
+
+    def update(self, named_grads: dict[str, torch.Tensor], state: AdamState,
+               scalars=None) -> tuple[list[torch.Tensor], AdamState]:
         """``(updates, new_state)``: the updates in ``named_grads``' order,
-        already carrying ``-lr``. Nothing is changed in place."""
+        already carrying ``-lr``. Nothing is changed in place. ``scalars``:
+        ``self.scalars(state.count)``, as floats or 0-d fp32 tensors (a
+        captured step reads them from the device), computed here if not
+        given."""
         names = list(named_grads)
         grads = list(named_grads.values())
         if self.clip > 0:
@@ -104,15 +119,25 @@ class Adam:
         nu = torch._foreach_add(
             torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2),
             torch._foreach_mul([state.nu[k] for k in names], b2))
-        count = state.count + 1
-        bc1 = _f32(np.float32(1.0) - np.float32(b1) ** np.float32(count))
-        bc2 = _f32(np.float32(1.0) - np.float32(b2) ** np.float32(count))
-        denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+        lr, bc1, bc2 = (self.scalars(state.count) if scalars is None
+                        else scalars)
+        denom = torch._foreach_sqrt(_div(nu, bc2))
         torch._foreach_add_(denom, self.eps)
-        updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
-        torch._foreach_mul_(updates, -self.learning_rate(state.count))
-        return updates, AdamState(count, dict(zip(names, mu)),
+        updates = torch._foreach_div(_div(mu, bc1), denom)
+        torch._foreach_mul_(updates, -lr)
+        return updates, AdamState(state.count + 1, dict(zip(names, mu)),
                                   dict(zip(names, nu)))
+
+
+def _div(tensors: list[torch.Tensor], scalar) -> list[torch.Tensor]:
+    """``tensors / scalar`` with the bits of eager PyTorch's division by a
+    host float: on a card that is a multiply by the scalar's fp32
+    reciprocal (how CUDA divides by a CPU scalar), on the CPU a division.
+    A 0-d device tensor ``scalar`` (a captured step's) gets the same
+    arithmetic, so the graph computes the eager step's bits."""
+    if isinstance(scalar, torch.Tensor) and scalar.is_cuda:
+        return torch._foreach_mul(tensors, torch.reciprocal(scalar))
+    return torch._foreach_div(tensors, scalar)
 
 
 def make_optimizer(lr: float, cfg: TrainConfig) -> Adam:

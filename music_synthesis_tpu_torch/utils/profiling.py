@@ -23,6 +23,8 @@ from typing import Callable
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from music_synthesis_tpu_torch._graphs import disable_graphs
+
 __all__ = ["trace", "device_events", "time_fn", "step_regions",
            "region_split", "REGIONS", "OUTSIDE", "TRACE_FILE"]
 
@@ -39,13 +41,15 @@ TRACE_FILE = "trace.json"
 def trace(log_dir: str | Path):
     """``with trace('/tmp/trace') as prof: step()`` -> ``log_dir/trace.json``
     (Chrome/Perfetto). Traces the CPU, and the card when there is one;
-    yields the ``torch.profiler.profile``."""
+    yields the ``torch.profiler.profile``. Inside it the entry points
+    launch eagerly (``_graphs.disable_graphs``): the trace is read by named
+    region, and a CUDA graph's replay opens none on the host."""
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
+    with disable_graphs(), profile(activities=activities) as prof:
         yield prof
         if torch.cuda.is_available():
             torch.cuda.synchronize()

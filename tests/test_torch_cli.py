@@ -387,5 +387,6 @@ def test_every_module_imports_without_jax():
                 "train.guard", "train.metrics", "utils.wav", "zoo",
                 "parallel.mesh", "parallel.multihost", "parallel.dp",
                 "parallel.shard_map_dp", "parallel.seqshard", "data.native",
-                "data.musicnet", "utils.profiling", "deploy", "bench"):
+                "data.musicnet", "utils.profiling", "deploy", "bench",
+                "_graphs"):
         assert f"music_synthesis_tpu_torch.{mod}" in names
