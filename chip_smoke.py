@@ -38,11 +38,13 @@ at the flagship's full width with the committed zoo weights, in phases:
 6. training (main path): stage-2 GAN training at the flagship's full width
    (``train.flagship.flagship_config``: ``zoo/vocoder_istft``'s vocoder,
    front-end and MelScaler, the MSD+MRD and training knobs of the flagship
-   run) through ``train.stage2.train_step``, batch [16, 8192] in bf16, G
-   from the zoo, D seeded: 2 steps inside the warmup gate (D and its Adam state must not
-   move, G must), then 1 + 3 steps past it (D must move); finite metrics
-   under the JAX step's keys; one log-mel kernel launch per step; the
-   median step time (CUDA events) and peak memory; then one step at
+   run, its MSD's grouped convolutions of up to 16 groups dense) through
+   ``train.stage2.train_step`` (one CUDA graph: its first call captures
+   it), batch [16, 8192] in bf16, G from the zoo, D seeded: 2 steps inside
+   the warmup gate (D and its Adam state must not move, G must), then
+   1 + 3 steps past it (D must move); finite metrics under the JAX step's
+   keys; one log-mel kernel launch per step; the median step time (CUDA
+   events) and peak memory; then one step at
    [2, 8192] in fp32 with TF32 off on the card (the "exact" kernel), from
    a D whose logits are away from 0, against the same step on the CPU
    (``TRAIN_TOL``), and the same step with TF32 on, which must fail it;
@@ -167,17 +169,30 @@ at the flagship's full width with the committed zoo weights, in phases:
    stage-1 steps from one state must match five eager ones within
    ``STAGE1_TOL``, printed beside two eager runs' gap; 10 replays of the
    copy-synthesis graph must raise ``logmel_kernel.n_launches`` by 10;
+   and the stage-2 flagship step at [16, 8192] (bf16, ``flagship_config``,
+   zoo G, seeded D; ``stage2_graphs``): 3 steps inside the warmup gate and
+   3 past it, graphed against two eager runs from one state, within
+   ``STAGE2_GRAPH_TOL`` or the eager runs' own gap per metric, the gap per
+   state group printed, D and D's Adam unmoved inside the gate;
+   ``train_step_many`` (K = 4) against four graphed steps, 4 log-mel
+   launches each; the graph pool's bytes; the MSD alone in bf16 with
+   ``dense_groups_max_g`` 16 against 0 (logits and taps within
+   ``MSD_DENSE_TOL`` of their peaks; forward and forward + R1 ms); the
+   step eager and graphed with and without ``dense_groups`` (ms, launches,
+   busy share, kernel ms, and the eager ``d_step`` / ``g_step`` split);
 11. the ``kernels`` JSON line (printed after phase 15).
 
 On the card the entry points replay CUDA graphs (``_graphs.py``): phases
-3-4 (copy-synthesis, serving), 5, 7 (the single-process stage-1 step), 8
-(``train_stage1``, the exported pair's service), 9 (every service, its
+3-4 (copy-synthesis, serving), 5, 6 (the single-process stage-2 step and
+its card-vs-CPU check), 7 (the single-process stage-1 step), 8 (both
+training CLIs, the exported pair's service), 9 (every service, its
 buckets and streams, ``/reload``'s new service), 10 (``eval_checkpoint``,
-``vocode``, ``generate``), 13's ``eval_checkpoint --run`` and 14 (the RTF,
-stage-1 and serving scenarios) run through them; the stage-2 step, the DP
-steps and the kernel's own checks launch eagerly. A graph's warm-up and
-capture build it and count no kernel launch; each replay counts the
-launches its capture recorded.
+``vocode``, ``generate``), 12's single-process reference steps, 13's
+``eval_checkpoint --run`` and 14 (every scenario but the host clip and
+the kernel's own) run through them; the DP steps, the traced steps and the
+kernel's own checks launch eagerly. A graph's warm-up and capture build it
+and count no kernel launch; each replay counts the launches its capture
+recorded.
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
 and again around each of phases 6, 7, 8, 9, 10, 14 and 15 (and around phase
@@ -1551,6 +1566,7 @@ def _rank_time(job: dict) -> dict:
     timed with CUDA events; with ``job["plain"]`` the single-process step
     on the same rows is timed the same way (the overhead of the group);
     and the gradient all-reduce alone on tensors of G's and D's sizes."""
+    from music_synthesis_tpu_torch._graphs import disable_graphs
     from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
     from music_synthesis_tpu_torch.parallel import mesh
     from music_synthesis_tpu_torch.parallel.shard_map_dp import (
@@ -1580,8 +1596,11 @@ def _rank_time(job: dict) -> dict:
     before = logmel_kernel.n_launches
     dp_ms, m = timed(make_shardmap_stage2_step(cfg))
     launches = logmel_kernel.n_launches - before
-    plain_ms = (timed(lambda s, w: stage2.train_step(cfg, s, w))[0]
-                if job["plain"] else None)
+    # The plain step eager, as the DP step runs (its graph would time
+    # another thing than the group's overhead).
+    with disable_graphs():
+        plain_ms = (timed(lambda s, w: stage2.train_step(cfg, s, w))[0]
+                    if job["plain"] else None)
     state = restore_checkpoint(job["state"], dev)
     reduce_ms = {}
     for part in ("g", "d"):
@@ -2248,6 +2267,7 @@ def phase_profiling(rng: np.random.Generator, tmp: Path) -> dict:
     ``utils.profiling.trace``: every JAX region name the config's step
     opens is in the trace, and ``region_split``'s device ms per region."""
     from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch._graphs import disable_graphs
     from music_synthesis_tpu_torch.train import stage1, stage2
     from music_synthesis_tpu_torch.train.flagship import (
         flagship_config, stage1_flagship_config, zoo_train_state)
@@ -2270,7 +2290,8 @@ def phase_profiling(rng: np.random.Generator, tmp: Path) -> dict:
     for stage, step in ((2, lambda: stage2.train_step(cfg2, state2, wav)),
                         (1, lambda: stage1.train_step(cfg1, state1, mel))):
         names = step_regions(cfg2 if stage == 2 else cfg1, stage)
-        step()
+        with disable_graphs():
+            step()  # the eager warm-up (the trace runs eagerly)
         d = tmp / f"trace_stage{stage}"
         with trace(d):
             step()  # dropped by skip=1 (its first launches may lack records)
@@ -2434,6 +2455,272 @@ def graphed_against_eager(label: str, call, pool_bytes) -> dict:
     return out
 
 
+# Phase 15, the stage-2 flagship step: graphed against eager, per metric
+# kind, |graphed - eager| / |eager| may not exceed the larger of this and
+# the gap between two eager runs of the same steps (the stage-1 graph's
+# STAGE1_TOL: its metrics agreed bit for bit, its state within 3e-8).
+STAGE2_GRAPH_TOL = STAGE1_TOL
+# The MSD alone in bf16 at [16, 8192], dense_groups_max_g 16 against 0:
+# each logit and tap within this share of its peak magnitude (the two paths
+# sum each output in another order before it is rounded to bf16, whose
+# step is 2^-8 of the value; the error grows through five layers).
+MSD_DENSE_TOL = 3e-2
+STAGE2_GRAPH_NAMES = ("G", "D", "G Adam mu", "G Adam nu", "D Adam mu",
+                      "D Adam nu", "EMA")
+
+
+def _msd_dense_against_grouped(cfg, d_params, wav: torch.Tensor) -> dict:
+    """(d) The flagship's MSD alone in its bf16, ``dense_groups_max_g`` 16
+    against 0, from one set of parameters (``d_params`` with He gains, so
+    that the taps are of order one): every logit and tap within
+    ``MSD_DENSE_TOL`` of its peak; ms (CUDA events) of the forward and of
+    the forward plus R1's double backward to D's parameters."""
+    from music_synthesis_tpu_torch.models.discriminators import (
+        MultiScaleDiscriminator)
+
+    params = {k.removeprefix("msd."): v for k, v in he_gain_d(
+        d_params, DEFAULT_PATH_SEED, TRAIN_D_OUT_GAIN).items()
+        if k.startswith("msd.")}
+    out, outs = {}, {}
+    for max_g in (16, 0):
+        msd = MultiScaleDiscriminator(dataclasses.replace(
+            cfg.msd, dense_groups_max_g=max_g)).cuda()
+        msd.load_state_dict(params, strict=True)
+        with torch.no_grad():
+            logits, feats = msd(wav)
+            outs[max_g] = [t.float() for t in logits + sum(feats, [])]
+        x = wav.detach().clone().requires_grad_()
+        leaves = list(msd.parameters())
+
+        def fwd():
+            with torch.no_grad():
+                msd(wav)
+
+        def fwd_r1():
+            ls, _ = msd(x)
+            (gx,) = torch.autograd.grad(sum(l.float().sum() for l in ls), x,
+                                        create_graph=True)
+            torch.autograd.grad(gx.float().square().sum(), leaves,
+                                allow_unused=True)  # conv_out.b
+
+        out[f"max_g{max_g}"] = {"fwd_ms": time_ms(fwd, samples=11, reps=2),
+                                "fwd_r1_ms": time_ms(fwd_r1, samples=5,
+                                                     reps=2, warmup=1)}
+    worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                for a, b in zip(outs[16], outs[0]))
+    out["max_rel_to_peak"] = worst
+    log(f"[graphs] MSD alone [{wav.shape[0]}, {wav.shape[1]}] "
+        f"{cfg.msd.compute_dtype}: dense_groups_max_g 16 forward "
+        f"{out['max_g16']['fwd_ms']:.3f} ms, + R1 double backward "
+        f"{out['max_g16']['fwd_r1_ms']:.3f} ms; grouped (0) "
+        f"{out['max_g0']['fwd_ms']:.3f} / {out['max_g0']['fwd_r1_ms']:.3f} "
+        f"ms (CUDA events); logits and taps max |dense - grouped| / peak "
+        f"{worst:.3g} (tolerance {MSD_DENSE_TOL})")
+    check(worst <= MSD_DENSE_TOL, f"MSD dense vs grouped {worst:.3g} of the "
+          f"peak > {MSD_DENSE_TOL}")
+    return out
+
+
+def stage2_graphs(rng: np.random.Generator) -> dict:
+    """Phase 15's stage-2 part, the flagship step at [16, 8192] (zoo G,
+    seeded D, ``flagship_config``, bf16): (a) 3 steps inside the warmup
+    gate and 3 past it, graphed against two eager runs from one state (the
+    same draws: both take them from the state's generator), D and D's Adam
+    frozen inside the gate; (b) ``train_step_many`` (K = 4) against four
+    graphed steps; (c) one log-mel launch per replay, the graph pool's
+    bytes; (d) the MSD alone, dense against grouped; (e) eager and graphed
+    step ms with and without ``dense_groups``, launches and busy share
+    (``torch.profiler``), and ``region_split``'s d_step / g_step (eager)."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch._graphs import disable_graphs, pool_bytes
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.flagship import (flagship_config,
+                                                          zoo_train_state)
+    from music_synthesis_tpu_torch.train.state import state_groups
+    from music_synthesis_tpu_torch.utils.profiling import (
+        OUTSIDE, TRACE_FILE, region_split, step_regions, trace)
+
+    t_start = time.perf_counter()
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg = flagship_config(entry)
+    t = cfg.train
+    check(cfg.msd.dense_groups_max_g == 16 and t.g_warmup_steps > 0,
+          "the flagship lowers its MSD's grouped convolutions and gates D")
+    state0 = zoo_train_state(cfg, entry, "cuda", seed=t.seed)
+    batches = torch.from_numpy(np.stack([test_audio(
+        rng, t.batch_size, t.segment_length, cfg.frontend.sample_rate)
+        for _ in range(4)])).cuda()
+    wav = batches[0]
+    out = {}
+
+    def copy_state(st) -> list:
+        return [_outputs([g[k] for k in sorted(g)]) for g in state_groups(st)]
+
+    # (a) 3 + 3 steps, both sides of the gate, one program.
+    def six(graphs: bool) -> tuple:
+        st, metrics, frozen = state0, [], None
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            for i in range(6):
+                if i == 3:
+                    d = copy_state(st)
+                    frozen = (_gap(d[1], copy_state(state0)[1]) == 0
+                              and all(_gap(a, b) == 0 for a, b in zip(
+                                  d[4:6], copy_state(state0)[4:6]))
+                              and st.d_opt.count == 0)
+                    st = dataclasses.replace(st, step=t.g_warmup_steps)
+                st, m = stage2.train_step(cfg, st, wav)
+                metrics.append(m)
+        return metrics, copy_state(st), frozen, st.d_opt.count
+
+    runs = [six(False), six(False), six(True)]
+    (eager_a, sa, fa, ca), (eager_b, sb, fb, cb), (graphed, sg, fg, cg) = runs
+    check(fa and fb and fg, "D or D's Adam moved inside the warmup gate "
+          f"(eager {fa}, {fb}; graphed {fg})")
+    check(ca == cb == cg == 3, f"D's Adam counts {ca}, {cb}, {cg} != 3")
+    check(all(m["d_update_norm"] == 0 for run in (eager_a, graphed)
+              for m in run[:3]), "a D update inside the gate")
+    state_gaps = {name: {"graphed_vs_eager": _gap(g, a),
+                         "eager_vs_eager": _gap(b, a)}
+                  for name, a, b, g in zip(STAGE2_GRAPH_NAMES, sa, sb, sg)}
+    log("[graphs] stage-2 flagship, the state after 3 + 3 steps, max "
+        "|graphed - eager| (max |eager - eager|): " + ", ".join(
+            f"{k} {v['graphed_vs_eager']:.3g} ({v['eager_vs_eager']:.3g})"
+            for k, v in state_gaps.items()))
+    kinds = {k: kind for names, kind in ((TRAIN_LOSSES, "loss"),
+                                         (TRAIN_GRAD_NORMS, "grad_norm"))
+             for k in names}
+
+    def rel(a, b):
+        return {k: max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30)
+                       for x, y in zip(a, b)) for k in kinds}
+
+    rel_graphed, rel_eager = rel(graphed, eager_a), rel(eager_b, eager_a)
+    bitwise = all(x == y for x, y in zip(graphed, eager_a))
+    log("[graphs] stage-2 flagship, 3 + 3 steps, graphed vs eager |diff| / "
+        f"|eager| (every metric equal bit for bit: {bitwise}): " + ", ".join(
+            f"{k} {v:.3g}" for k, v in rel_graphed.items()))
+    log("[graphs] stage-2 flagship, eager vs eager: " + ", ".join(
+        f"{k} {v:.3g}" for k, v in rel_eager.items()))
+    for k, kind in kinds.items():
+        tol = max(STAGE2_GRAPH_TOL[kind], rel_eager[k])
+        check(rel_graphed[k] <= tol, f"graphed stage-2 step: {k} "
+              f"{rel_graphed[k]:.3g} from the eager step > {tol:.3g}")
+    out["gate"] = {"metrics_bitwise": bitwise, "rel_graphed_vs_eager":
+                   rel_graphed, "rel_eager_vs_eager": rel_eager,
+                   "state_max_abs": state_gaps}
+
+    # (b) train_step_many, K = 4, against four graphed steps; (c) one
+    # launch per replay.
+    past = dataclasses.replace(state0, step=t.g_warmup_steps)
+    before = logmel_kernel.n_launches
+    st, m_many = stage2.train_step_many(cfg, past, batches)
+    many_launches = logmel_kernel.n_launches - before
+    s_many = copy_state(st)
+    st = past
+    before = logmel_kernel.n_launches
+    for w in batches:
+        st, m_four = stage2.train_step(cfg, st, w)
+    four_launches = logmel_kernel.n_launches - before
+    s_four = copy_state(st)
+    many_gap = {name: _gap(a, b)
+                for name, a, b in zip(STAGE2_GRAPH_NAMES, s_many, s_four)}
+    rel_many = rel([m_many], [m_four])
+    log(f"[graphs] train_step_many K=4 against 4 graphed steps: metrics "
+        f"equal {m_many == m_four} (|diff| / |steps| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in rel_many.items()) + "), state max "
+        "|diff| " + ", ".join(f"{k} {v:.3g}" for k, v in many_gap.items())
+        + f"; log-mel launches {many_launches} and {four_launches}")
+    for k, kind in kinds.items():
+        tol = max(STAGE2_GRAPH_TOL[kind], rel_eager[k])
+        check(rel_many[k] <= tol, f"train_step_many: {k} {rel_many[k]:.3g} "
+              f"from four steps > {tol:.3g}")
+    check(many_launches == four_launches == 4,
+          f"log-mel launches: {many_launches} in train_step_many, "
+          f"{four_launches} in 4 steps (1 per replay)")
+    step = stage2.graphed_step(cfg, wav.shape, wav.device)
+    check(step.program.graph is not None and
+          step.program.launches_per_replay == 1,
+          "the stage-2 graph holds one log-mel launch")
+    out["many"] = {"metrics_equal": m_many == m_four, "rel": rel_many,
+                   "state_max_abs": many_gap, "launches": many_launches,
+                   "pool_bytes": pool_bytes(step.program.pool, wav.device)}
+    log(f"[graphs] the stage-2 flagship graph's pool holds "
+        f"{out['many']['pool_bytes']} B")
+
+    log(f"[graphs] stage-2 (a)-(c) took {time.perf_counter() - t_start:.1f} s")
+
+    # (d) the MSD alone, dense against grouped.
+    out["msd"] = _msd_dense_against_grouped(cfg, state0.d_params, wav)
+
+    # (e) the step, eager and graphed, with and without dense_groups. The
+    # eager launches, kernel ms and busy share come from the traced step
+    # that region_split reads (its first traced step is dropped).
+    grouped_cfg = dataclasses.replace(cfg, msd=dataclasses.replace(
+        cfg.msd, dense_groups_max_g=0))
+    top = [OUTSIDE, "frontend", "generator_fwd", "d_step", "g_step", "ema"]
+    for label, c in (("dense16", cfg), ("grouped", grouped_cfg)):
+        t_part = time.perf_counter()
+        holder = {"state": past}
+
+        def one(c=c):
+            holder["state"], _ = stage2.train_step(c, holder["state"], wav)
+
+        with disable_graphs():
+            eager_ms = time_ms(one, samples=3, reps=1, warmup=1)
+        t_trace = time.perf_counter()
+        with tempfile.TemporaryDirectory(prefix="stage2_regions_") as d:
+            with trace(d):
+                one()  # dropped by skip=1
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                one()
+                torch.cuda.synchronize()
+                traced_ms = 1e3 * (time.perf_counter() - t0)
+            split = region_split(Path(d) / TRACE_FILE, step_regions(c, 2),
+                                 skip=1)
+        t_trace = time.perf_counter() - t_trace
+        graphed_ms = time_ms(one, samples=5, reps=2, warmup=2)
+        graphed_prof = profile_launches(one, calls=1)
+        eager_device = sum(split[n]["device_ms"] for n in top if n in split)
+        row = {"eager_ms": eager_ms, "graphed_ms": graphed_ms,
+               "launches_per_eager_call": sum(
+                   split[n]["launches"] for n in top if n in split),
+               "launches_per_graphed_call":
+                   graphed_prof["launches_per_call"],
+               "device_ms_eager": eager_device,
+               "device_ms_graphed": graphed_prof["device_ms_per_call"],
+               "busy_eager": eager_device / traced_ms,
+               "busy_graphed": graphed_prof["device_busy"],
+               "d_step_device_ms": split["d_step"]["device_ms"],
+               "g_step_device_ms": split["g_step"]["device_ms"],
+               "r1_device_ms": split["r1_penalty"]["device_ms"],
+               "seconds": time.perf_counter() - t_part,
+               "trace_seconds": t_trace}
+        log(f"[graphs] stage-2 step [16, 8192] bf16 ({label}): eager "
+            f"{eager_ms:.3f} ms (median of 3 steps), graphed "
+            f"{graphed_ms:.3f} ms (median of 5 samples of 2) per step (CUDA "
+            f"events, with the metrics' host read); "
+            f"{row['launches_per_eager_call']:.0f} kernel launches per "
+            f"eager step (the trace's), "
+            f"{row['launches_per_graphed_call']:.0f} device activities "
+            f"(kernels, copies, sets) traced per replay; "
+            f"{row['device_ms_eager']:.2f} / {row['device_ms_graphed']:.2f} "
+            f"ms of kernels; busy {row['busy_eager']:.3f} eager (traced "
+            f"step, {traced_ms:.1f} ms), {row['busy_graphed']:.3f} graphed; "
+            f"eager regions: d_step {row['d_step_device_ms']:.2f} ms "
+            f"(r1_penalty {row['r1_device_ms']:.2f}), g_step "
+            f"{row['g_step_device_ms']:.2f} ms of kernels; "
+            f"{row['seconds']:.1f} s, {t_trace:.1f} of them tracing")
+        out[f"step_{label}"] = row
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[graphs] stage-2 part: {out['seconds']:.1f} s, on "
+        f"{card_name_and_power()}")
+    return out
+
+
 def phase_cuda_graphs(rng: np.random.Generator) -> dict:
     """Phase 15: each graphed path against its eager launches (main path;
     the caller zeroes the launch counts before and reads them after)."""
@@ -2448,6 +2735,7 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
     from music_synthesis_tpu_torch.train import stage1
     from music_synthesis_tpu_torch.train.flagship import (
         stage1_flagship_config, zoo_train_state)
+    from music_synthesis_tpu_torch.train.state import state_groups
 
     out = {}
     # Path 1: generate, the flagship pair (specgan_flux fp32, vocoder_istft
@@ -2542,7 +2830,7 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
                 st, m = stage1.train_step(cfg1, st, mel1)
                 metrics.append(m)
         return metrics, [_outputs([g[k] for k in sorted(g)])
-                         for g in stage1._groups(st)]
+                         for g in state_groups(st)]
 
     (eager_a, sa), (eager_b, sb), (graphed, sg) = (five(False), five(False),
                                                    five(True))
@@ -2599,6 +2887,9 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
         f"traced per replay); busy {s1['busy_eager']:.3f} eager, "
         f"{s1['busy_graphed']:.3f} graphed; pool {s1['pool_bytes']} B")
     out["stage1_step"] = s1
+
+    # Path 6: the stage-2 flagship step (stage2_graphs).
+    out["stage2_step"] = stage2_graphs(rng)
     log(f"[graphs] on {card_name_and_power()}")
     return out
 
@@ -2654,14 +2945,17 @@ def main() -> int:
     faulthandler.dump_traceback_later(args.budget, exit=True)
     rng = np.random.default_rng(args.seed)
 
+    def banner(title: str) -> None:
+        log(f"== {title} (at {time.perf_counter() - t_start:.1f} s)")
+
     from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 
-    log("== phase 1: build and environment")
+    banner("phase 1: build and environment")
     build, build_native = phase_build()
-    log("== phase 2: kernel vs plain")
+    banner("phase 2: kernel vs plain")
     kv = phase_kernel_vs_plain(rng)
 
-    log("== phases 3-4: main path (copy-synthesis, serving)")
+    banner("phases 3-4: main path (copy-synthesis, serving)")
     logmel_kernel.n_launches = 0
     copy = phase_copy_synthesis(rng)
     serving, svc = phase_serving()
@@ -2669,11 +2963,11 @@ def main() -> int:
     log(f"[main] kernel launches on the main path: {launches}")
     check(launches["logmel"] > 0, "the main path never launched the log-mel kernel")
 
-    log("== phase 5: checks against the CPU")
+    banner("phase 5: checks against the CPU")
     copy_err = check_copy_synthesis_on_cpu()
     serve_err = check_serving_on_cpu(svc)
 
-    log("== phase 6: training (main path), and against the CPU")
+    banner("phase 6: training (main path), and against the CPU")
     logmel_kernel.n_launches = 0
     training = phase_training(rng)
     launches["train"] = logmel_kernel.n_launches
@@ -2685,7 +2979,7 @@ def main() -> int:
         f"peak memory {training['peak_memory_bytes'] / 2**30:.3f} GiB, on "
         f"{card_name_and_power()}")
 
-    log("== phase 7: stage-1 training (main path), and against the CPU")
+    banner("phase 7: stage-1 training (main path), and against the CPU")
     logmel_kernel.n_launches = 0
     stage1_train = phase_stage1_training(rng)
     launches["stage1_train"] = logmel_kernel.n_launches
@@ -2698,7 +2992,7 @@ def main() -> int:
         f"{card_name_and_power()}")
 
     with tempfile.TemporaryDirectory(prefix="lifecycle_") as tmp:
-        log("== phase 8: train -> export -> serve through the CLIs (main path)")
+        banner("phase 8: train -> export -> serve through the CLIs (main path)")
         logmel_kernel.n_launches = 0
         lifecycle = phase_lifecycle(Path(tmp))
         launches["lifecycle"] = logmel_kernel.n_launches
@@ -2706,7 +3000,7 @@ def main() -> int:
         check(launches["lifecycle"] == lifecycle["stage2_launches"],
               "serving the exported pair launched the log-mel kernel")
 
-        log("== phase 9: the HTTP server (main path)")
+        banner("phase 9: the HTTP server (main path)")
         logmel_kernel.n_launches = 0
         http_out = phase_http(lifecycle)
         launches["http"] = logmel_kernel.n_launches
@@ -2714,7 +3008,7 @@ def main() -> int:
         check(launches["http"] == 0, "serving launched the log-mel kernel "
               "(the reference's serving path runs none)")
 
-        log("== phase 10: evaluation and the inference CLIs (main path)")
+        banner("phase 10: evaluation and the inference CLIs (main path)")
         logmel_kernel.n_launches = 0
         evals = phase_eval_and_clis(lifecycle, Path(tmp))
         launches["eval_clis"] = logmel_kernel.n_launches
@@ -2724,7 +3018,7 @@ def main() -> int:
         check(launches["eval_clis"] == evals["eval_run_launches"] > 0,
               "only eval_checkpoint --run conditions through the kernel here")
 
-        log("== phase 12: data parallelism (main path, in spawned ranks)")
+        banner("phase 12: data parallelism (main path, in spawned ranks)")
         logmel_kernel.n_launches = 0
         dp = phase_data_parallel(Path(tmp))
         launches["dp_single"] = logmel_kernel.n_launches
@@ -2737,7 +3031,7 @@ def main() -> int:
             f"{launches['dp_single']} in this process's single-process step")
         check(launches["dp_train"] > 0, "the DP steps never launched the kernel")
 
-        log("== phase 13: native IO, extract_features, eval_stage1, parity, "
+        banner("phase 13: native IO, extract_features, eval_stage1, parity, "
             "average_ckpts, deploy, named regions (main path)")
         modules = phase_port_modules(rng, Path(tmp), lifecycle)
         modules["native"]["build_s"] = build_native.seconds
@@ -2747,7 +3041,7 @@ def main() -> int:
             f"{launches['extract_features']}, eval_stage1 "
             f"{launches['eval_stage1']}")
 
-        log("== phase 14: benchmark scripts (main path)")
+        banner("phase 14: benchmark scripts (main path)")
         logmel_kernel.n_launches = 0
         benchmark = phase_benchmark(Path(tmp))
         launches["benchmark"] = logmel_kernel.n_launches
@@ -2760,7 +3054,7 @@ def main() -> int:
               "the benchmark scripts launch the kernel only in the stage-2 "
               "and kernel-vs-plain scenarios")
 
-    log("== phase 15: CUDA graphs against eager launches (main path)")
+    banner("phase 15: CUDA graphs against eager launches (main path)")
     logmel_kernel.n_launches = 0
     graphs = phase_cuda_graphs(rng)
     launches["cuda_graphs"] = logmel_kernel.n_launches
@@ -2768,7 +3062,7 @@ def main() -> int:
     check(launches["cuda_graphs"] > 0,
           "phase 15 never launched the log-mel kernel")
 
-    log("== phase 11: kernels")
+    banner("phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
                     and r["n_mels"] == 128)

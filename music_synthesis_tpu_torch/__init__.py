@@ -16,8 +16,8 @@ unless the caller passes ``device="cpu"``
 parallelism (``parallel/``) runs training over ``torch.distributed``
 ranks and inference over a list of devices in one process; ``deploy``
 exports the inference paths through ``torch.export``. On the card the
-inference programs and the single-process stage-1 step replay one CUDA
-graph per shape (``_graphs.py``), as the reference runs one compiled
+inference programs and the single-process steps of both stages replay one
+CUDA graph per shape (``_graphs.py``), as the reference runs one compiled
 program per shape; on the CPU they run eagerly.
 
 The one TPU kernel of the reference, the fused log-mel front-end, is a

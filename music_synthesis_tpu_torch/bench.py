@@ -18,7 +18,8 @@ name, its numbers under the JAX script's keys:
   reference-faithful fp32 recipe and the fast recipe,
   ``stage2_gan_step_ms`` / ``stage2_gan_step_fast_ms``, each with its FLOPs
   (``torch.utils.flop_counter``) and ``_mfu``, the share of the card's
-  published peak for the precision its convolutions ran in;
+  published peak for the precision its convolutions ran in, of the
+  logical FLOPs (those of the recipe without ``dense_groups_max_g``);
 - ``bench_stage1_fwd_loss``: ``train.stage1.forward_and_loss``,
   ``stage1_fwd_loss_ms``;
 - ``bench_frontend_cpu_clip``: log-mel of a 30 s clip on the host CPU;
@@ -27,10 +28,10 @@ name, its numbers under the JAX script's keys:
 
 Method (the JAX scenarios' estimator): a run makes ``n`` calls, each on
 fresh inputs drawn on the device from a ``torch.Generator`` seeded for the
-run (on a card the inference and stage-1 calls replay CUDA graphs, as the
-JAX scenarios time jitted programs: the fresh input's copy into the
-graph's input buffer is part of the call; the same runs with the graphs
-disabled follow, their time on stderr), sums a device-side checksum of
+run (on a card the inference calls and both stages' steps replay CUDA
+graphs, as the JAX scenarios time jitted programs: the fresh input's copy
+into the graph's input buffer is part of the call; the same runs with the
+graphs disabled follow, their time on stderr), sums a device-side checksum of
 every call (``sum |wav|``, the summed losses) and reads it once, after the
 last call; the host clock measures the run, as a user of the port waits
 on it. The time per call is
@@ -375,9 +376,11 @@ def stage2_variants(base: PipelineConfig | None = None) -> dict:
     through the log-mel kernel as the flagship recipe trains
     (``use_pallas_frontend``; the JAX script's recipes use its XLA
     front-end, the same function). The fast recipe is the JAX script's
-    ``dataclasses.replace``: bf16 G and D and D(real)-feature reuse; its
-    ``dense_groups_max_g``, ``f_fold`` and ``concat_disc_batch`` choose TPU
-    relayouts of the same math, which change nothing here (``config.py``)."""
+    ``dataclasses.replace``: bf16 G and D, D(real)-feature reuse, one D
+    call on the concatenated batch, and the MSD's grouped convolutions of
+    up to 16 groups as dense block-diagonal ones (``dense_groups_max_g``);
+    its ``f_fold`` chooses a TPU relayout the port does not make
+    (``config.py``)."""
     base = PipelineConfig() if base is None else base
     base = dataclasses.replace(base, train=dataclasses.replace(
         base.train, use_pallas_frontend=True))
@@ -431,16 +434,22 @@ def bench_stage2_step(results: dict, env: Env, variants: dict | None = None,
 
     Steps are chained from one seeded state, each on a fresh batch
     ``0.5 tanh(normal)`` drawn on the device, with the metrics left there
-    (``train.stage2._step``): the run's one host read is its summed
-    ``d_loss``. The log-mel kernel runs once per step, in "fast", as in
-    training; ``stage2_steps_run`` counts every step this scenario ran, so
-    its launches can be checked. The FLOPs are counted over one more step,
-    outside the timed runs (``step_flops``); ``<key>_tflops_per_s`` is
-    FLOPs over the step time, ``_logical_tflops_per_s`` the same (no
-    relayout runs here, so no padded FLOPs are executed:
-    ``_executed_flop_inflation`` is 1.0), and ``_mfu`` the share of the
-    card's published peak (``PEAK_FLOPS``) for ``conv_precision``, null
-    off the card or on a card without an entry."""
+    (``train.stage2._run_step``: on a card the replay of the step's CUDA
+    graph, as the JAX script times its jitted step; the same runs with
+    the graphs disabled follow, their time on stderr): the run's one host
+    read is its summed ``d_loss``. The log-mel kernel runs once per step,
+    in "fast", as in training; ``stage2_steps_run`` counts every step this
+    scenario ran, so its launches can be checked. The FLOPs are counted
+    over one more eager step, outside the timed runs (``step_flops``):
+    ``<key>_gflop_per_step`` and ``_tflops_per_s`` are the executed ones.
+    A recipe with ``dense_groups_max_g`` executes the zero blocks of its
+    block-diagonal kernels too, so its logical FLOPs are counted over one
+    step of its twin without it (the same parameters), as the JAX script
+    counts them: ``_logical_tflops_per_s`` is logical FLOPs over the step
+    time, ``_executed_flop_inflation`` executed over logical, and
+    ``_mfu`` the logical FLOPs' share of the card's published peak
+    (``PEAK_FLOPS``) for ``conv_precision``, null off the card or on a
+    card without an entry."""
     variants = stage2_variants() if variants is None else variants
     peaks = PEAK_FLOPS.get(env.card["device"], {})
     steps = 0
@@ -459,32 +468,39 @@ def bench_stage2_step(results: dict, env: Env, variants: dict | None = None,
             nonlocal steps
             st, total = _state, torch.zeros((), device=env.device)
             for _ in range(n):
-                st, m = stage2._step(_cfg, st, _draw(gen), None, "fast")
+                st, m = stage2._run_step(_cfg, st, _draw(gen))
                 total = total + m["d_loss"]
                 steps += 1
             return total
 
-        best = per_call_s(name, env, many, n_iters)
+        best = graphed_and_eager_s(name, env, many, n_iters)
         results[name] = best * 1e3
         t0 = time.perf_counter()
-        flops = step_flops(cfg, state0, draw(env.generator(-2)))
+        wav = draw(env.generator(-2))
+        flops = step_flops(cfg, state0, wav)
         steps += 1
+        executed = sum(flops.values())
+        logical = executed
+        if cfg.msd.dense_groups_max_g:
+            twin = dataclasses.replace(cfg, msd=dataclasses.replace(
+                cfg.msd, dense_groups_max_g=0))
+            logical = sum(step_flops(twin, state0, wav).values())
+            steps += 1
         log(f"[{name}] FLOPs counted in {time.perf_counter() - t0:.2f} s")
-        total = sum(flops.values())
         precision = conv_precision(cfg, env.device)
         peak = peaks.get(precision)
-        tflops = total / best / 1e12
-        results[f"{name}_gflop_per_step"] = total / 1e9
-        results[f"{name}_tflops_per_s"] = tflops
-        results[f"{name}_logical_tflops_per_s"] = tflops
-        # No relayout executes padded FLOPs in the port.
-        results[f"{name}_executed_flop_inflation"] = 1.0
-        results[f"{name}_mfu"] = (total / best / peak if peak else None)
+        results[f"{name}_gflop_per_step"] = executed / 1e9
+        results[f"{name}_tflops_per_s"] = executed / best / 1e12
+        results[f"{name}_logical_tflops_per_s"] = logical / best / 1e12
+        results[f"{name}_executed_flop_inflation"] = executed / logical
+        results[f"{name}_mfu"] = (logical / best / peak if peak else None)
         env.notes[f"{name}_mfu_precision"] = precision
         log(f"[{name}] {best * 1e3:.2f} ms/step; "
             + ", ".join(f"{k} {v / 1e9:.3f}" for k, v in flops.items())
-            + f" GFLOP -> {tflops:.2f} TFLOP/s; convolutions in {precision}, "
-            f"MFU {results[f'{name}_mfu']} against "
+            + f" GFLOP executed, {logical / 1e9:.3f} logical ("
+            f"{executed / logical:.4f}x) -> {logical / best / 1e12:.2f} "
+            f"TFLOP/s useful; convolutions in {precision}, MFU "
+            f"{results[f'{name}_mfu']} against "
             f"{peak / 1e12 if peak else None} TFLOP/s on {env.card['card']}")
     results["stage2_steps_run"] = steps
 

@@ -2,11 +2,13 @@
 
 A copy of ``music_synthesis_tpu.config`` (the port imports nothing from the
 JAX package). Field names, order and defaults are identical, so zoo cards,
-run ``config.json`` files and presets load unchanged. Fields that only
-choose a TPU relayout of the same math (``MSDConfig.dense_groups_max_g``,
-``MRDConfig.f_fold``, ``TrainConfig.concat_disc_batch``,
-``use_pallas_frontend``'s interpret mode, ``mesh_*``) are kept so that those
-files load; the port computes the logical layer whatever they say.
+run ``config.json`` files and presets load unchanged.
+``MSDConfig.dense_groups_max_g`` lowers the MSD's grouped convolutions to
+dense block-diagonal ones, as in the JAX package. Fields that only choose
+a TPU relayout of the same math (``MRDConfig.f_fold``,
+``TrainConfig.concat_disc_batch``, ``use_pallas_frontend``'s interpret
+mode, ``mesh_*``) are kept so that those files load; the port computes
+the logical layer whatever they say.
 """
 
 from __future__ import annotations
@@ -119,7 +121,9 @@ class MSDConfig:
     leaky_slope: float = 0.2
     use_weight_norm: bool = True
     compute_dtype: str = "float32"
-    dense_groups_max_g: int = 0  # TPU relayout only; grouped convs here
+    # Grouped convs with 1 < groups <= this run as one dense conv over a
+    # block-diagonal kernel (same parameters and math; ops/conv.py).
+    dense_groups_max_g: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

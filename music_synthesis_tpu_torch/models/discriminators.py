@@ -11,9 +11,12 @@ JAX order (MSD scales, then MRD resolutions). Layouts are PyTorch's: the
 MSD's ``[B, C, L]``, the MRD's ``[B, C, T, F]`` (JAX's ``[B, L, C]`` and
 ``[B, T, F, C]``). Submodule names follow the Flax tree (``msd.scale_0.
 conv_in``, ``mrd.res_512.conv_0``, ...), so ``convert.to_state_dict`` of
-JAX's parameters loads as it is. The JAX package's TPU relayouts
-(``dense_groups_max_g``, ``f_fold``) compute the same logits as the
-logical layers here and share their parameters.
+JAX's parameters loads as it is. ``MSDConfig.dense_groups_max_g`` runs the
+MSD's grouped convolutions of ``1 < groups <= dense_groups_max_g`` as
+dense ones over block-diagonal kernels, as the JAX package does
+(``ops/conv.py``); the JAX package's MRD relayout ``f_fold`` is not
+ported (the logical layer here computes what it equals). Both share the
+logical layers' parameters.
 """
 
 from __future__ import annotations
@@ -50,9 +53,10 @@ class ScaleDiscriminator(nn.Module):
         self.n_down = len(cfg.strides)
         for i, (cin, ch, s, grp) in enumerate(zip(
                 cfg.channels, cfg.channels[1:], cfg.strides, cfg.groups)):
+            g = min(grp, cin)
             self.add_module(f"down_{i}", WNConv(
-                cin, ch, cfg.kernel, stride=s, groups=min(grp, cin),
-                **common))
+                cin, ch, cfg.kernel, stride=s, groups=g,
+                dense_groups=1 < g <= cfg.dense_groups_max_g, **common))
         self.conv_post = WNConv(cfg.channels[len(cfg.strides)],
                                 cfg.channels[-1], cfg.post_kernel, **common)
         self.conv_out = WNConv(cfg.channels[-1], 1, cfg.output_kernel,

@@ -12,10 +12,14 @@ axis except Cout, and is permuted (and, for the transposed convolution,
 flipped) into PyTorch's layout inside ``forward``. Activations are PyTorch's
 ``[B, C, L]`` (1-D) and ``[B, C, T, F]`` (2-D, JAX's ``[B, T, F, C]``).
 With ``compute_dtype="bfloat16"`` the parameters stay fp32 and the input,
-kernel and bias are cast, so activations flow onward in bf16. The JAX
-package's TPU relayouts of the same math (``dense_groups``,
-``FFoldedWNConv2d``) are not ported: the port computes the logical
-convolution they equal.
+kernel and bias are cast, so activations flow onward in bf16.
+
+``WNConv(dense_groups=True)`` runs a grouped convolution as the JAX
+package's does with that flag: one dense convolution over the
+block-diagonal ``[*K, Cin, Cout]`` kernel built from the grouped one, the
+same parameters, gradients reaching only the real blocks. The JAX
+package's 2-D relayout ``FFoldedWNConv2d`` is not ported: the port
+computes the logical convolution it equals.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["WNConv", "WNConvTranspose1d", "avg_pool1d",
+__all__ = ["WNConv", "WNConvTranspose1d", "avg_pool1d", "block_diagonal",
            "conv_transpose_padding"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -77,6 +81,18 @@ class _WNBase(nn.Module):
         return None if self.b is None else self.b.to(self.compute_dtype)
 
 
+def block_diagonal(kernel: torch.Tensor, groups: int) -> torch.Tensor:
+    """The dense ``[*K, Cin, Cout]`` kernel equal to the grouped
+    ``[*K, Cin/groups, Cout]`` one: ``dense[..., h*ci + c, g*co + o] =
+    kernel[..., c, g*co + o]`` where ``h == g``, else 0 (the JAX package's
+    ``einsum("...cgo,hg->...hcgo")``)."""
+    *ks, ci, cout = kernel.shape
+    kr = kernel.reshape(*ks, ci, groups, cout // groups)
+    eye = torch.eye(groups, dtype=kernel.dtype, device=kernel.device)
+    return torch.einsum("...cgo,hg->...hcgo", kr, eye).reshape(
+        *ks, ci * groups, cout)
+
+
 class WNConv(_WNBase):
     """1-D ``[B, Cin, L] -> [B, Cout, L']`` or 2-D ``[B, Cin, T, F] ->
     [B, Cout, T', F']`` convolution with explicit padding.
@@ -84,15 +100,18 @@ class WNConv(_WNBase):
     ``kernel_size``, ``stride`` and ``dilation`` are an int (1-D) or one
     int per spatial axis. padding: 'same' (torch-style symmetric zeros,
     total ``d*(k-1)`` per axis with the extra sample at the end), 'reflect'
-    (the same amounts, reflected) or 'valid'.
+    (the same amounts, reflected) or 'valid'. ``dense_groups``: with
+    ``groups > 1``, one dense convolution over ``block_diagonal`` of the
+    kernel in place of ``groups`` grouped ones.
     """
 
     def __init__(self, in_channels: int, features: int,
                  kernel_size: int | tuple[int, ...], *,
                  stride: int | tuple[int, ...] = 1,
                  dilation: int | tuple[int, ...] = 1, groups: int = 1,
-                 padding: str = "same", use_weight_norm: bool = True,
-                 use_bias: bool = True, init_scale: float = 0.02,
+                 dense_groups: bool = False, padding: str = "same",
+                 use_weight_norm: bool = True, use_bias: bool = True,
+                 init_scale: float = 0.02,
                  init_scheme: str = "dcgan", init_gain: float = 1.0,
                  compute_dtype: str = "float32",
                  generator: torch.Generator | None = None):
@@ -119,6 +138,7 @@ class WNConv(_WNBase):
             generator=generator)
         self.stride, self.dilation = per_axis(stride), per_axis(dilation)
         self.groups, self.padding = groups, padding
+        self.dense_groups = dense_groups and groups > 1
         # F.pad order: the last axis first, (lo, hi) for each.
         pads = []
         for k, d in zip(reversed(kernel), reversed(self.dilation)):
@@ -132,11 +152,14 @@ class WNConv(_WNBase):
             mode = "reflect" if self.padding == "reflect" else "constant"
             x = F.pad(x, self.pads, mode=mode)
         k = self.kernel()
+        groups = self.groups
+        if self.dense_groups:
+            k, groups = block_diagonal(k, groups), 1
         w = k.permute(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
         cdt = self.compute_dtype
         return self._conv(x.to(cdt), w.to(cdt), self._bias(),
                           stride=self.stride, dilation=self.dilation,
-                          groups=self.groups)
+                          groups=groups)
 
 
 def conv_transpose_padding(kernel_size: int, stride: int) -> tuple[int, int]:

@@ -38,14 +38,16 @@ def make_dp_step(step_fn: Callable, cfg: PipelineConfig, group=None,
 
 def make_dp_stage2_step(cfg: PipelineConfig, group=None) -> Callable:
     """``(state, wav [B/N, L], noise=None, precision="fast") -> (state,
-    metrics)``; ``noise`` is this rank's rows of the global draws."""
+    metrics)``; ``noise`` is this rank's rows of the global draws. Eager,
+    also on a card, as ``make_dp_stage1_step`` says."""
     return make_dp_step(stage2.train_step, cfg, group)
 
 
 def make_dp_stage1_step(cfg: PipelineConfig, group=None) -> Callable:
     """``(state, mel [B/N, T, M], z=None, noise=None) -> (state,
-    metrics)``. Eager, also on a card: the single-process step's CUDA graph
-    (``stage1.GraphedStep``) does not apply, because the gradient
-    all-reduces go through ``torch.distributed`` (gloo's run on the host
-    and cannot be captured; NCCL graphs are not done yet)."""
+    metrics)``. Eager, also on a card: the single-process steps' CUDA
+    graphs (``stage1.GraphedStep``, ``stage2.GraphedStep``) do not apply,
+    because the gradient all-reduces go through ``torch.distributed``
+    (gloo's run on the host and cannot be captured; NCCL graphs are not
+    done yet)."""
     return make_dp_step(stage1.train_step, cfg, group)

@@ -26,16 +26,18 @@ __all__ = ["make_shardmap_stage2_step", "make_shardmap_stage1_step",
 
 def make_shardmap_stage2_step(cfg: PipelineConfig, group=None) -> Callable:
     """``(state, wav [B/N, L], noise=None, precision="fast") -> (state,
-    metrics)``; ``noise`` replaces this rank's own draws."""
+    metrics)``; ``noise`` replaces this rank's own draws. Eager, also on
+    a card, as ``make_shardmap_stage1_step`` says."""
     return make_dp_step(stage2.train_step, cfg, group, dp="shard_map")
 
 
 def make_shardmap_stage1_step(cfg: PipelineConfig, group=None) -> Callable:
     """Stage-1 twin: ``(state, mel [B/N, T, M], z=None, noise=None)``.
-    Eager, also on a card: the single-process step's CUDA graph
-    (``stage1.GraphedStep``) does not apply, because the gradient
-    all-reduces go through ``torch.distributed`` (gloo's run on the host
-    and cannot be captured; NCCL graphs are not done yet)."""
+    Eager, also on a card: the single-process steps' CUDA graphs
+    (``stage1.GraphedStep``, ``stage2.GraphedStep``) do not apply,
+    because the gradient all-reduces go through ``torch.distributed``
+    (gloo's run on the host and cannot be captured; NCCL graphs are not
+    done yet)."""
     return make_dp_step(stage1.train_step, cfg, group, dp="shard_map")
 
 

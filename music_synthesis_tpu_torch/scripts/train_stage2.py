@@ -8,7 +8,10 @@ run directory. The flags, their defaults and the run directory are the JAX
 script's (``scripts/_run.py``), plus vocoded-audio dumps
 (``vocoded_<step>.wav`` beside ``real_<step>.wav``, from the EMA generator
 when there is one). ``--steps-per-dispatch K`` runs K steps per call of
-``train_step_many`` on a ``[K, B, L]`` chunk of the same batches.
+``train_step_many`` on a ``[K, B, L]`` chunk of the same batches. On a
+card a single-process run replays the step's CUDA graph
+(``train.stage2.GraphedStep``): once per step, K times back to back per
+call of ``train_step_many``, with one read of the metrics after the last.
 
 With ``--pallas-frontend`` the conditioning (in every step and every
 audio dump) runs through the fused log-mel kernel (``ops/logmel.py``): on
@@ -115,8 +118,9 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--concat-disc", action="store_true",
                     help="one D forward on [real; fake] in the D step")
     ap.add_argument("--dense-groups", type=int, default=0,
-                    help="recorded in the config (a TPU relayout of the "
-                         "MSD's grouped convs; the same math here)")
+                    help="run the MSD's grouped convs of up to this many "
+                         "groups as one dense conv over a block-diagonal "
+                         "kernel (the same math and parameters)")
     ap.add_argument("--f-fold", type=int, default=0,
                     help="recorded in the config (a TPU relayout of the "
                          "MRD's convs; the same math here)")

@@ -25,7 +25,6 @@ both keys). The flux profiles are averaged over the ranks before the L1
 
 from __future__ import annotations
 
-import dataclasses
 import functools
 
 import torch
@@ -33,7 +32,7 @@ from torch.func import functional_call
 from torch.profiler import record_function
 
 from music_synthesis_tpu_torch._device import resolve_device
-from music_synthesis_tpu_torch._graphs import GraphedProgram, enabled, flags
+from music_synthesis_tpu_torch._graphs import enabled, flags
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.losses.gan import (
     d_loss_fn,
@@ -54,15 +53,19 @@ from music_synthesis_tpu_torch.parallel.mesh import (
 from music_synthesis_tpu_torch.train.stage2 import (
     Draws,
     _copy_generator,
+    _device,
     _floats,
     noise_scale,
     reduce_metrics,
 )
 from music_synthesis_tpu_torch.train.state import (
-    AdamState,
     GANState,
+    InPlaceStep,
+    assign,
+    cached_step,
     global_norm,
     make_optimizer,
+    next_state,
 )
 
 __all__ = ["make_models", "make_train_state", "forward_losses",
@@ -102,10 +105,6 @@ def make_train_state(cfg: PipelineConfig, seed: int | None = None,
         rng=torch.Generator(device=dev).manual_seed(seed + 1),
         g_ema=({k: v.clone() for k, v in g_params.items()}
                if t.ema_decay > 0 else None))
-
-
-def _device(state: GANState) -> torch.device:
-    return next(iter(state.g_params.values())).device
 
 
 def forward_losses(cfg: PipelineConfig, state: GANState, real_mel,
@@ -170,11 +169,9 @@ def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
     dev = _device(state)
     real = torch.as_tensor(real_mel, dtype=torch.float32, device=dev)
     rng, z, noise = _draws(cfg, state, dev, real.shape, z, noise, group, dp)
-    g_params, d_params, g_opt, d_opt, g_ema, metrics = _update(
-        cfg, state, real, z, noise, _scalars(cfg, state), group, dp)
-    return GANState(step=state.step + 1, g_params=g_params,
-                    d_params=d_params, g_opt=g_opt, d_opt=d_opt, rng=rng,
-                    g_ema=g_ema), metrics
+    *new, metrics = _update(cfg, state, real, z, noise,
+                            _scalars(cfg, state), group, dp)
+    return next_state(state, rng, state.d_opt.count + 1, *new), metrics
 
 
 def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
@@ -297,72 +294,29 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
     return g_params, d_params, g_opt, d_opt, g_ema, out
 
 
-def _groups(state: GANState) -> list[dict[str, torch.Tensor]]:
-    """The state's tensors by group: G, D, both Adam moments, the EMA."""
-    groups = [state.g_params, state.d_params, state.g_opt.mu, state.g_opt.nu,
-              state.d_opt.mu, state.d_opt.nu]
-    return groups + ([state.g_ema] if state.g_ema is not None else [])
-
-
 def _update_in_place(cfg: PipelineConfig, state: GANState,
                      real: torch.Tensor, z: torch.Tensor,
                      scalars: torch.Tensor, *noise: torch.Tensor) -> dict:
     """``_update`` on the 0-d tensors of ``scalars`` [7], its new values
     written back into ``state``'s tensors; returns the metrics."""
-    g_params, d_params, g_opt, d_opt, g_ema, metrics = _update(
-        cfg, state, real, z, noise, scalars.unbind())
-    new = GANState(state.step, g_params, d_params, g_opt, d_opt, state.rng,
-                   g_ema)
-    olds, news = _groups(state), _groups(new)
-    torch._foreach_copy_([t for old in olds for t in old.values()],
-                         [nw[k] for old, nw in zip(olds, news) for k in old])
+    *new, metrics = _update(cfg, state, real, z, noise, scalars.unbind())
+    assign(state, *new)
     return metrics
 
 
-class GraphedStep:
-    """The single-process step in place, for one config and batch shape on
-    one device: on a CUDA device one CUDA graph (the reference's
-    ``jax.jit(train_step, donate_argnums=1)``), on the CPU the same
-    arithmetic run eagerly.
-
-    The state's tensors live in buffers this object owns: a call copies
-    the given state into them, unless it is the state the last call
-    returned, and returns a state whose tensors are those buffers, updated
-    in place. So, as with the reference's donated state, a state is no
-    longer valid once a later step has run from it or from any state of
-    the same buffers: copy what must outlive the step. The draws (latents,
-    instance noise) are made eagerly from the state's generator, in the
-    functional step's order, and the per-step scalars (the noise sigma,
-    each Adam's learning rate and bias corrections) are filled into 0-d
-    fp32 tensors before each call, so a call computes what ``_step``
-    computes, draw for draw.
+class GraphedStep(InPlaceStep):
+    """The single-process step in place (``train.state.InPlaceStep``): on
+    a CUDA device one CUDA graph, on the CPU the same arithmetic run
+    eagerly. The draws (latents, instance noise) are made eagerly from the
+    state's generator, in the functional step's order, and the per-step
+    scalars (the noise sigma, each Adam's learning rate and bias
+    corrections) are filled into 0-d fp32 tensors before each call, so a
+    call computes what ``_step`` computes, draw for draw.
     """
 
     def __init__(self, cfg: PipelineConfig, device: torch.device | str):
+        super().__init__(functools.partial(_update_in_place, cfg), device)
         self.cfg = cfg
-        self.device = torch.device(device)
-        self.buffers: GANState | None = None
-        self.program = None
-
-    def _adopt(self, state: GANState) -> GANState:
-        if self.buffers is None:
-            with torch.no_grad():
-                self.buffers = dataclasses.replace(
-                    state,
-                    g_params=_clone(state.g_params),
-                    d_params=_clone(state.d_params),
-                    g_opt=AdamState(0, _clone(state.g_opt.mu),
-                                    _clone(state.g_opt.nu)),
-                    d_opt=AdamState(0, _clone(state.d_opt.mu),
-                                    _clone(state.d_opt.nu)),
-                    g_ema=(None if state.g_ema is None
-                           else _clone(state.g_ema)))
-            return self.buffers
-        for buf, given in zip(_groups(self.buffers), _groups(state)):
-            if given is not buf:
-                torch._foreach_copy_(list(buf.values()),
-                                     [given[k] for k in buf])
-        return self.buffers
 
     def __call__(self, state: GANState, real_mel, z=None, noise=None
                  ) -> tuple[GANState, dict[str, torch.Tensor]]:
@@ -373,45 +327,22 @@ class GraphedStep:
         rng, z, noise = _draws(self.cfg, state, self.device, real.shape, z,
                                noise)
         scalars = torch.tensor(_scalars(self.cfg, state), dtype=torch.float32)
-        buffers = self._adopt(state)
-        if self.device.type == "cuda":
-            if self.program is None:
-                self.program = GraphedProgram(
-                    functools.partial(_update_in_place, self.cfg, buffers),
-                    self.device,
-                    mutates=[t for g in _groups(buffers) for t in g.values()])
-            metrics = self.program(real, z, scalars, *noise)
-        else:
-            metrics = _update_in_place(self.cfg, buffers, real.to(self.device),
-                                       z, scalars, *noise)
-        return dataclasses.replace(
-            buffers, step=state.step + 1, rng=rng,
-            g_opt=AdamState(state.g_opt.count + 1, buffers.g_opt.mu,
-                            buffers.g_opt.nu),
-            d_opt=AdamState(state.d_opt.count + 1, buffers.d_opt.mu,
-                            buffers.d_opt.nu)), metrics
-
-
-def _clone(params: dict[str, torch.Tensor]) -> dict[str, torch.Tensor]:
-    return {k: v.detach().clone() for k, v in params.items()}
+        metrics = self.run(state, real, z, scalars, *noise)
+        return self.advanced(state, rng, state.d_opt.count + 1), metrics
 
 
 #: The graphed steps of this process, by (config, batch shape, device,
-#: ``_graphs.flags()``); the oldest beyond _MAX_STEPS is dropped.
+#: ``_graphs.flags()``); the oldest beyond ``cached_step``'s limit is
+#: dropped.
 _STEPS: dict[tuple, GraphedStep] = {}
-_MAX_STEPS = 4
 
 
 def graphed_step(cfg: PipelineConfig, shape, device: torch.device
                  ) -> GraphedStep:
     """The process's ``GraphedStep`` of ``cfg`` for batches of ``shape``
     on ``device`` under the current ``_graphs.flags()``."""
-    key = (cfg, tuple(shape), device, flags())
-    step = _STEPS.pop(key, None) or GraphedStep(cfg, device)
-    _STEPS[key] = step
-    while len(_STEPS) > _MAX_STEPS:
-        del _STEPS[next(iter(_STEPS))]
-    return step
+    return cached_step(_STEPS, (cfg, tuple(shape), device, flags()),
+                       lambda: GraphedStep(cfg, device))
 
 
 def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,

@@ -4,16 +4,22 @@
 loss, optional R1 penalty and instance noise), then one G update against
 the *updated* D (adversarial, feature-matching and multi-resolution STFT
 terms, optional frame-energy and phase terms), then the EMA of G. It
-returns a new ``GANState`` (the old one is not changed) and the metrics
-of the JAX step, under the same keys, as Python floats.
+returns the new ``GANState`` and the metrics of the JAX step, under the
+same keys, as Python floats.
 
-The step is eager PyTorch on the state's device; the modules are fixed per
-config and called with the state's parameters (``torch.func.
-functional_call``), so neither player's ``.grad`` is ever written: each
-gradient is ``torch.autograd.grad`` of one loss with respect to one
-player's parameters. The G forward of the D step and the G step is one
-forward (G's parameters do not change in between, so the JAX step's two
-forwards give the same tensor). The step's phases are
+On a card the single-process step replays one CUDA graph per config and
+batch shape (``GraphedStep``, the reference's jitted step, to which the
+state is donated). Both sides of the warmup gate are one program: the
+gate, the noise sigma and Adam's scalars are 0-d tensors filled before
+each replay. ``train_step_many`` replays the graph K times and reads the
+metrics once. On the CPU, and under data parallelism, the same arithmetic
+runs eagerly and the old state is left as it was. The modules are fixed
+per config and called with the state's parameters
+(``torch.func.functional_call``), so neither player's ``.grad`` is ever
+written: each gradient is ``torch.autograd.grad`` of one loss with respect
+to one player's parameters. The G forward of the D step and the G step is
+one forward (G's parameters do not change in between, so the JAX step's
+two forwards give the same tensor). The step's phases are
 ``torch.profiler.record_function`` regions under the JAX step's
 ``jax.named_scope`` names (``utils/profiling.py``); ``generator_fwd_g``
 holds only the instance noise added to that one forward's output.
@@ -55,6 +61,7 @@ from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from music_synthesis_tpu_torch._device import resolve_device
+from music_synthesis_tpu_torch._graphs import enabled, flags
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.losses.gan import (
     d_loss_fn,
@@ -71,14 +78,19 @@ from music_synthesis_tpu_torch.ops.frontend import log_mel_for_vocoder
 from music_synthesis_tpu_torch.ops.logmel import fused_log_mel_for_vocoder
 from music_synthesis_tpu_torch.parallel import mesh
 from music_synthesis_tpu_torch.train.state import (
+    AdamState,
     GANState,
+    InPlaceStep,
+    assign,
+    cached_step,
     global_norm,
     make_optimizer,
+    next_state,
 )
 
 __all__ = ["make_models", "conditioning_mel", "make_train_state",
-           "noise_scale", "Draws", "reduce_metrics", "train_step",
-           "train_step_many"]
+           "noise_scale", "Draws", "reduce_metrics", "GraphedStep",
+           "graphed_step", "train_step", "train_step_many"]
 
 DP_MODES = ("jit", "shard_map")
 
@@ -208,14 +220,70 @@ def _frame_rms(x: torch.Tensor, hop: int) -> torch.Tensor:
     return torch.sqrt(torch.mean(torch.square(f), -1) + 1e-8)
 
 
+def _device(state: GANState) -> torch.device:
+    return next(iter(state.g_params.values())).device
+
+
+def _gate_open(cfg: PipelineConfig, step: int) -> bool:
+    """Whether the adversarial game is on at ``step`` (the warmup gate)."""
+    t = cfg.train
+    return t.g_warmup_steps <= 0 or step >= t.g_warmup_steps
+
+
+def _draws(cfg: PipelineConfig, state: GANState, dev: torch.device, shape,
+           noise, group=None, dp: str = "shard_map"):
+    """``(rng, noise)``: with instance noise the step's three normals of
+    the batch's ``shape`` on ``dev``, drawn from a copy of ``state.rng``
+    (returned, advanced) where not given; ``noise`` is ``()`` without
+    it."""
+    rng = _copy_generator(state.rng)
+    if cfg.train.d_input_noise <= 0:
+        return rng, ()
+    if noise is None:
+        draws = Draws(rng, group, dp)
+        noise = [draws.normal(shape) for _ in range(3)]
+    return rng, tuple(torch.as_tensor(n, dtype=torch.float32, device=dev)
+                      for n in noise)
+
+
+def _scalars(cfg: PipelineConfig, state: GANState) -> list[float]:
+    """The step's per-step fp32 scalars: the instance-noise sigma, the
+    warmup gate (1.0 once the adversarial game is on, else 0.0), then
+    ``(lr, bc1, bc2)`` of G's Adam and of D's (``Adam.scalars``)."""
+    t = cfg.train
+    return [noise_scale(cfg, state.step),
+            float(_gate_open(cfg, state.step)),
+            *make_optimizer(t.g_lr, t).scalars(state.g_opt.count),
+            *make_optimizer(t.d_lr, t).scalars(state.d_opt.count)]
+
+
 def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
           noise, precision: str, group=None, dp: str = "shard_map"):
-    """One D and one G update; the metrics stay tensors on the device."""
+    """One D and one G update, eagerly; the metrics stay tensors on the
+    device."""
+    dev = _device(state)
+    wav = torch.as_tensor(wav, dtype=torch.float32, device=dev)
+    rng, noise = _draws(cfg, state, dev, wav.shape, noise, group, dp)
+    *new, metrics = _update(cfg, state, wav, noise, _scalars(cfg, state),
+                            precision, group, dp)
+    d_count = state.d_opt.count + _gate_open(cfg, state.step)
+    return next_state(state, rng, d_count, *new), metrics
+
+
+def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
+            noise: tuple, scalars, precision: str, group=None,
+            dp: str = "shard_map"):
+    """The step's arithmetic on given draws and ``_scalars`` (floats, or
+    0-d fp32 tensors): ``(g_params, d_params, g_opt, d_opt, g_ema,
+    metrics)``, new tensors; nothing is changed in place. No value is read
+    back to the host and nothing branches on the step, so both sides of
+    the warmup gate are one program."""
     t = cfg.train
     gen, disc = _modules(cfg)
     g_tx, d_tx = make_optimizer(t.g_lr, t), make_optimizer(t.d_lr, t)
-    dev = next(iter(state.g_params.values())).device
-    wav = torch.as_tensor(wav, dtype=torch.float32, device=dev)
+    sigma, gate = scalars[0], scalars[1]
+    g_scalars, d_scalars = scalars[2:5], scalars[5:8]
+    dev = wav.device
     b = wav.shape[0]
 
     with record_function("frontend"):
@@ -228,30 +296,26 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
         return functional_call(gen, g_in, (x,))
 
     with record_function("generator_fwd"):
-        fake = (checkpoint(run_g, mel, use_reentrant=False)
+        # G draws nothing, so the recomputation needs no RNG state (whose
+        # stash a CUDA graph's capture would refuse).
+        fake = (checkpoint(run_g, mel, use_reentrant=False,
+                           preserve_rng_state=False)
                 if t.remat_generator else run_g(mel))
     fake_sg = fake.detach()
 
     # Instance noise: three normals, the third reused (with gradients) on
-    # the G side. ``noise`` replaces the draw from the state's generator.
-    rng = _copy_generator(state.rng)
-    draws = Draws(rng, group, dp)
+    # the G side.
     d_real_in, d_fake_in, g_noise = wav, fake_sg, None
     if t.d_input_noise > 0:
-        if noise is None:
-            noise = [draws.normal(wav.shape) for _ in range(3)]
-        n1, n2, n3 = (torch.as_tensor(n, dtype=torch.float32, device=dev)
-                      for n in noise)
-        s = noise_scale(cfg, state.step)
-        d_real_in, d_fake_in, g_noise = wav + s * n1, fake_sg + s * n2, s * n3
+        n1, n2, n3 = noise
+        d_real_in, d_fake_in, g_noise = (wav + sigma * n1,
+                                         fake_sg + sigma * n2, sigma * n3)
 
     # --- D step, on the detached fake ---
     d_names = list(state.d_params)
     d_leaves = [p.detach().requires_grad_() for p in state.d_params.values()]
     d_in = dict(zip(d_names, d_leaves))
     metrics = {}
-    # Warmup gate: D's update and Adam state stay as they are.
-    adv_on = t.g_warmup_steps <= 0 or state.step >= t.g_warmup_steps
     with record_function("d_step"):
         if t.concat_disc_batch:
             with record_function("disc_both"):
@@ -285,15 +349,19 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
         if group is not None:
             d_grads = mesh.all_reduce_mean(d_grads, group)
         d_grad_norm = global_norm(d_grads)
-        if adv_on:
-            d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
-                                          state.d_opt)
-            d_update_norm = global_norm(d_updates)
-            d_params = dict(zip(d_names, torch._foreach_add(
-                list(state.d_params.values()), d_updates)))
-        else:
-            d_opt, d_params = state.d_opt, state.d_params
-            d_update_norm = torch.zeros((), device=dev)
+        d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
+                                      state.d_opt, d_scalars)
+        if t.g_warmup_steps > 0:
+            # Warmup gate: D's update masked, its Adam moments kept.
+            d_updates = torch._foreach_mul(d_updates, gate)
+            on = torch.as_tensor(gate, device=dev) > 0
+            d_opt = AdamState(d_opt.count, *(
+                {k: torch.where(on, new[k], old[k]) for k in new}
+                for new, old in ((d_opt.mu, state.d_opt.mu),
+                                 (d_opt.nu, state.d_opt.nu))))
+        d_update_norm = global_norm(d_updates)
+        d_params = dict(zip(d_names, torch._foreach_add(
+            list(state.d_params.values()), d_updates)))
     real_feats_d = [[f.detach() for f in head] for head in real_feats]
 
     # --- G step, against the updated D (which takes no gradient) ---
@@ -316,7 +384,7 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
             adv = g_loss_fn(t.gan_loss)(fake_logits)
             fm = feature_matching_loss(real_feats_g, fake_feats)
             stft = multires_stft_loss(fake, wav, cfg.stft_loss, group)
-            adv_w = 1.0 if adv_on else 0.0
+            adv_w = gate if t.g_warmup_steps > 0 else 1.0
             total = (adv_w * (adv + t.lambda_feature_matching * fm)
                      + t.lambda_stft * stft)
             aux = {"g_adv": adv, "g_fm": fm, "g_stft": stft}
@@ -336,7 +404,7 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
             g_grads = mesh.all_reduce_mean(g_grads, group)
         g_grad_norm = global_norm(g_grads)
         g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)),
-                                       state.g_opt)
+                                       state.g_opt, g_scalars)
         g_update_norm = global_norm(g_updates)
         g_params = dict(zip(g_names, torch._foreach_add(
             list(state.g_params.values()), g_updates)))
@@ -350,9 +418,6 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
                 list(g_params.values()), 1.0 - t.ema_decay))
             g_ema = dict(zip(g_names, ema))
 
-    new_state = GANState(step=state.step + 1, g_params=g_params,
-                         d_params=d_params, g_opt=g_opt, d_opt=d_opt,
-                         rng=rng, g_ema=g_ema)
     means = reduce_metrics(
         {"d_loss": d_loss.detach(), "g_loss": total.detach(),
          **{k: v.detach() for k, v in aux.items()}, **metrics},
@@ -363,7 +428,77 @@ def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
            **{k: means[k] for k in aux}, **{k: means[k] for k in metrics},
            "d_grad_norm": d_grad_norm, "g_grad_norm": g_grad_norm,
            "d_update_norm": d_update_norm, "g_update_norm": g_update_norm}
-    return new_state, out
+    return g_params, d_params, g_opt, d_opt, g_ema, out
+
+
+def _update_in_place(cfg: PipelineConfig, precision: str, state: GANState,
+                     wav: torch.Tensor, scalars: torch.Tensor,
+                     *noise: torch.Tensor) -> dict:
+    """``_update`` on the 0-d tensors of ``scalars`` [8], its new values
+    written back into ``state``'s tensors; returns the metrics."""
+    *new, metrics = _update(cfg, state, wav, noise, scalars.unbind(),
+                            precision)
+    assign(state, *new)
+    return metrics
+
+
+class GraphedStep(InPlaceStep):
+    """The single-process step in place (``train.state.InPlaceStep``), for
+    one config, batch shape and log-mel ``precision``: on a CUDA device
+    one CUDA graph (the reference's ``jax.jit(train_step,
+    donate_argnums=1)``), R1's double backward and the log-mel kernel's
+    launch inside it; on the CPU the same arithmetic run eagerly. The
+    instance noise is drawn eagerly from the state's generator, in the
+    functional step's order, and the per-step scalars (the noise sigma,
+    the warmup gate, each Adam's learning rate and bias corrections) are
+    filled into 0-d fp32 tensors before each call, so a call computes what
+    ``_step`` computes, draw for draw, on both sides of the gate.
+    """
+
+    def __init__(self, cfg: PipelineConfig, device: torch.device | str,
+                 precision: str = "fast"):
+        super().__init__(functools.partial(_update_in_place, cfg, precision),
+                         device)
+        self.cfg = cfg
+
+    def __call__(self, state: GANState, wav, noise=None
+                 ) -> tuple[GANState, dict[str, torch.Tensor]]:
+        """One step from ``state`` on ``wav`` (``noise`` as in
+        ``train_step``); the metrics stay tensors (the graph's buffers on
+        the card: read them before the next call)."""
+        wav = torch.as_tensor(wav, dtype=torch.float32)
+        rng, noise = _draws(self.cfg, state, self.device, wav.shape, noise)
+        scalars = torch.tensor(_scalars(self.cfg, state), dtype=torch.float32)
+        metrics = self.run(state, wav, scalars, *noise)
+        d_count = state.d_opt.count + _gate_open(self.cfg, state.step)
+        return self.advanced(state, rng, d_count), metrics
+
+
+#: The graphed steps of this process, by (config, batch shape, device,
+#: log-mel precision, ``_graphs.flags()``); the oldest beyond
+#: ``cached_step``'s limit is dropped.
+_STEPS: dict[tuple, GraphedStep] = {}
+
+
+def graphed_step(cfg: PipelineConfig, shape, device: torch.device,
+                 precision: str = "fast") -> GraphedStep:
+    """The process's ``GraphedStep`` of ``cfg`` for batches of ``shape``
+    on ``device`` under the current ``_graphs.flags()``."""
+    return cached_step(_STEPS, (cfg, tuple(shape), device, precision,
+                                flags()),
+                       lambda: GraphedStep(cfg, device, precision))
+
+
+def _run_step(cfg: PipelineConfig, state: GANState, wav, noise=None,
+              precision: str = "fast", group=None, dp: str = "shard_map"):
+    """One step with its metrics left on the device: on a card a
+    single-process step replays ``graphed_step``'s graph (``state`` is
+    donated to it); otherwise it runs eagerly (``_step``)."""
+    dev = _device(state)
+    if group is None and enabled(dev):
+        wav = torch.as_tensor(wav, dtype=torch.float32)
+        return graphed_step(cfg, wav.shape, dev, precision)(state, wav, noise)
+    return _step(cfg, state, wav, noise, precision, group, dp)
 
 
 def _floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
@@ -384,19 +519,32 @@ def train_step(cfg: PipelineConfig, state: GANState, wav,
     ``group``: the process group of a data-parallel step, whose rank holds
     ``wav`` (and ``noise``) as its rows of the global batch; ``dp`` says
     which reference step it follows (the module's docstring).
+
+    On a card a single-process step (no ``group``) replays the CUDA graph
+    of ``graphed_step``: the returned state's tensors are that graph's
+    buffers, and ``state`` is donated to it (``GraphedStep``). On the CPU,
+    and under data parallelism, the step runs eagerly and returns new
+    tensors.
     """
-    new_state, metrics = _step(cfg, state, wav, noise, precision, group, dp)
+    new_state, metrics = _run_step(cfg, state, wav, noise, precision, group,
+                                   dp)
     return new_state, _floats(metrics)
 
 
-def train_step_many(cfg: PipelineConfig, state: GANState, wavs,
+def train_step_many(cfg: PipelineConfig, state: GANState, wavs, noise=None,
                     group=None, dp: str = "shard_map"
                     ) -> tuple[GANState, dict[str, float]]:
     """``len(wavs)`` chained steps over ``wavs [K, B, L]``, the same as K
-    ``train_step`` calls; returns the last step's metrics."""
-    metrics = None
-    for wav in wavs:
-        state, metrics = _step(cfg, state, wav, None, "fast", group, dp)
-    if metrics is None:
+    ``train_step`` calls; returns the last step's metrics (the reference's
+    ``lax.scan`` in one dispatch). ``noise``: ``[K, 3, B, L]``, each
+    step's three instance-noise normals, in place of draws. On a card a
+    single-process call replays the step's graph K times back to back and
+    reads the metrics once, after the last."""
+    wavs = torch.as_tensor(wavs, dtype=torch.float32, device=_device(state))
+    if len(wavs) == 0:
         raise ValueError("train_step_many needs at least one batch")
+    for i, wav in enumerate(wavs):
+        state, metrics = _run_step(
+            cfg, state, wav, None if noise is None else noise[i],
+            group=group, dp=dp)
     return state, _floats(metrics)

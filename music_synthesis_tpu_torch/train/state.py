@@ -15,18 +15,26 @@ schedule and the bias corrections cost no device synchronisation; the
 scalars they give are rounded to fp32 as optax computes them
 (``Adam.scalars``), and a step captured as a CUDA graph reads them from 0-d
 device tensors filled before each replay.
+
+``InPlaceStep`` is what both stages' ``GraphedStep`` share: the state
+donated into buffers the step owns, updated in place by one CUDA graph on
+a card, by the same arithmetic run eagerly on the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
 
+from music_synthesis_tpu_torch._graphs import GraphedProgram
 from music_synthesis_tpu_torch.config import TrainConfig
 
-__all__ = ["AdamState", "GANState", "Adam", "make_optimizer", "global_norm"]
+__all__ = ["AdamState", "GANState", "Adam", "make_optimizer", "global_norm",
+           "state_groups", "assign", "next_state", "InPlaceStep",
+           "cached_step"]
 
 
 @dataclasses.dataclass
@@ -143,3 +151,121 @@ def _div(tensors: list[torch.Tensor], scalar) -> list[torch.Tensor]:
 def make_optimizer(lr: float, cfg: TrainConfig) -> Adam:
     """Adam with the GAN betas of ``cfg`` (0.5, 0.9 by default)."""
     return Adam(lr, cfg)
+
+
+def state_groups(state: GANState) -> list[dict[str, torch.Tensor]]:
+    """The state's tensors by group: G, D, both Adam moments, the EMA."""
+    groups = [state.g_params, state.d_params, state.g_opt.mu, state.g_opt.nu,
+              state.d_opt.mu, state.d_opt.nu]
+    return groups + ([state.g_ema] if state.g_ema is not None else [])
+
+
+def assign(state: GANState, g_params, d_params, g_opt: AdamState,
+           d_opt: AdamState, g_ema) -> None:
+    """Copies a step's new tensors into ``state``'s, in place."""
+    new = GANState(state.step, g_params, d_params, g_opt, d_opt, state.rng,
+                   g_ema)
+    olds, news = state_groups(state), state_groups(new)
+    torch._foreach_copy_([t for old in olds for t in old.values()],
+                         [nw[k] for old, nw in zip(olds, news) for k in old])
+
+
+def _fresh(state: GANState) -> GANState:
+    """A state of new, unfilled tensors laid out as ``state``'s."""
+    def empty(d):
+        return None if d is None else {k: torch.empty_like(v)
+                                       for k, v in d.items()}
+
+    return GANState(
+        state.step, empty(state.g_params), empty(state.d_params),
+        AdamState(state.g_opt.count, empty(state.g_opt.mu),
+                  empty(state.g_opt.nu)),
+        AdamState(state.d_opt.count, empty(state.d_opt.mu),
+                  empty(state.d_opt.nu)),
+        state.rng, empty(state.g_ema))
+
+
+def next_state(state: GANState, rng: torch.Generator, d_count: int,
+               g_params, d_params, g_opt: AdamState, d_opt: AdamState,
+               g_ema) -> GANState:
+    """The state after a step from ``state``: new tensors in the layouts of
+    ``state``'s holding the step's results (which come in the layouts of
+    their gradients: a weight norm's sum over a parameter rounds by the
+    parameter's strides, so a state whose layouts drifted from step to step
+    would not round as the in-place step's fixed buffers do), the step and
+    G's Adam count one further, D's Adam count ``d_count``."""
+    out = _fresh(state)
+    assign(out, g_params, d_params, g_opt, d_opt, g_ema)
+    out.step, out.rng = state.step + 1, rng
+    out.g_opt.count, out.d_opt.count = state.g_opt.count + 1, d_count
+    return out
+
+
+class InPlaceStep:
+    """A single-process training step in place, for one config and batch
+    shape on one device: on a CUDA device one CUDA graph of ``body`` (the
+    reference's ``jax.jit(train_step, donate_argnums=1)``), on the CPU
+    ``body`` run eagerly.
+
+    ``body(buffers, *inputs)`` updates the state ``buffers`` in place and
+    returns the metrics, tensors. The state's tensors live in buffers this
+    object owns: ``run`` copies the given state into them, unless it is
+    the state the last call returned. So, as with the reference's donated
+    state, a state is no longer valid once a later step has run from it or
+    from any state of the same buffers: copy what must outlive the step.
+    On a card the inputs go to the device without a host synchronisation,
+    so steps run back to back until their metrics are read.
+    """
+
+    def __init__(self, body, device: torch.device | str):
+        self.body = body
+        self.device = torch.device(device)
+        self.buffers: GANState | None = None
+        self.program = None
+
+    def _adopt(self, state: GANState) -> GANState:
+        if self.buffers is None:
+            self.buffers = _fresh(state)
+        with torch.no_grad():
+            for buf, given in zip(state_groups(self.buffers),
+                                  state_groups(state)):
+                if given is not buf:
+                    torch._foreach_copy_(list(buf.values()),
+                                         [given[k] for k in buf])
+        return self.buffers
+
+    def run(self, state: GANState, *inputs: torch.Tensor) -> dict:
+        """``body`` on ``state`` (adopted into the buffers) and ``inputs``;
+        the metrics are the graph's buffers on a card: read them before
+        the next call."""
+        buffers = self._adopt(state)
+        if self.device.type != "cuda":
+            return self.body(buffers, *(a.to(self.device) for a in inputs))
+        inputs = [a if a.is_cuda else
+                  a.pin_memory().to(self.device, non_blocking=True)
+                  for a in inputs]
+        if self.program is None:
+            self.program = GraphedProgram(
+                functools.partial(self.body, buffers), self.device,
+                mutates=[t for g in state_groups(buffers) for t in g.values()])
+        return self.program(*inputs)
+
+    def advanced(self, state: GANState, rng: torch.Generator,
+                 d_count: int) -> GANState:
+        """The buffers as the state after a step from ``state``: its step
+        and G's Adam count one further, D's Adam count ``d_count``."""
+        b = self.buffers
+        return dataclasses.replace(
+            b, step=state.step + 1, rng=rng,
+            g_opt=AdamState(state.g_opt.count + 1, b.g_opt.mu, b.g_opt.nu),
+            d_opt=AdamState(d_count, b.d_opt.mu, b.d_opt.nu))
+
+
+def cached_step(steps: dict, key, make, limit: int = 4):
+    """``steps[key]``, made by ``make()`` if missing; the oldest entries
+    beyond ``limit`` are dropped (with their graphs and pools)."""
+    step = steps.pop(key, None) or make()
+    steps[key] = step
+    while len(steps) > limit:
+        del steps[next(iter(steps))]
+    return step

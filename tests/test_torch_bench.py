@@ -134,6 +134,20 @@ def test_every_scenario_writes_the_jax_keys(full_run):
     assert record["device"] == record["card"] == "cpu"
 
 
+def test_dense_groups_recipe_reports_logical_flops(full_run):
+    """The fast recipe lowers the MSD's grouped convolutions to dense
+    block-diagonal ones, which execute zero blocks: its executed FLOPs
+    exceed the logical ones (its twin without ``dense_groups_max_g``);
+    the fp32 recipe executes none."""
+    results = full_run[3]["results"]
+    for name, dense in (("stage2_gan_step_ms", False),
+                        ("stage2_gan_step_fast_ms", True)):
+        inflation = results[f"{name}_executed_flop_inflation"]
+        assert (inflation > 1.0) if dense else (inflation == 1.0), name
+        assert results[f"{name}_tflops_per_s"] == pytest.approx(
+            inflation * results[f"{name}_logical_tflops_per_s"], rel=1e-12)
+
+
 def test_contract_line_is_the_last_stdout_line(full_run):
     _, lines, _, record = full_run
     assert len(lines) == 1

@@ -45,6 +45,7 @@ from music_synthesis_tpu_torch.infer.copy_synthesis import copy_synthesis
 from music_synthesis_tpu_torch.infer.stream import make_stream_fns
 from music_synthesis_tpu_torch.losses.stft_loss import multires_stft_loss
 from music_synthesis_tpu_torch.train import stage1, stage2
+from music_synthesis_tpu_torch.train.state import state_groups
 from test_torch_stage1 import (
     FLAGSHIP,
     PRE_STEPS,
@@ -81,7 +82,7 @@ MOVING = dict(FLAGSHIP, d_noise_decay_steps=2, ema_decay=0.9,
 
 
 def _tensors(state):
-    return [(f"{i}/{k}", v) for i, group in enumerate(stage1._groups(state))
+    return [(f"{i}/{k}", v) for i, group in enumerate(state_groups(state))
             for k, v in group.items()]
 
 

@@ -16,8 +16,12 @@ within the gap between two eager runs or ``chip_smoke.py``'s
 whichever is larger, and every state tensor within that gap or 1e-6 of
 its largest magnitude: the metrics agree bit for bit on the card, but
 after a few steps D's Adam moments can differ at rounding level
-(PERF.md §7). A second service's audio against the first's: 2e-3
-(``FP32_TOL``).
+(PERF.md §7). The stage-2 flagship step at full width ([16, 8192],
+bf16, zoo G, seeded D, ``flagship_config``: R1, instance noise, the
+MSD's dense block-diagonal convolutions), one step on each side of the
+warmup gate: graphed against eager within the same tolerances, one
+log-mel launch per replay. A second service's audio against the first's:
+2e-3 (``FP32_TOL``).
 """
 
 import contextlib
@@ -35,7 +39,8 @@ from music_synthesis_tpu_torch.infer.stream import make_stream_fns
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
-from music_synthesis_tpu_torch.train import stage1
+from music_synthesis_tpu_torch.train import stage1, stage2
+from music_synthesis_tpu_torch.train.state import state_groups
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -184,7 +189,7 @@ def test_stage1_graphed_steps_match_eager(cuda):
             for _ in range(3):
                 st, m = stage1.train_step(cfg, st, mel)
                 out.append(m)
-        runs.append(([g[k].clone() for g in stage1._groups(st)
+        runs.append(([g[k].clone() for g in state_groups(st)
                       for k in sorted(g)], out))
     step = stage1.graphed_step(cfg, mel.shape, mel.device)
     assert step.program.graph is not None
@@ -195,6 +200,49 @@ def test_stage1_graphed_steps_match_eager(cuda):
         assert float((g - e).abs().max()) <= tol
     for e, a, g in zip(m_eager, m_again, m_graphed):
         for k in e:
+            kind = "grad_norm" if k.endswith("_norm") else "loss"
+            tol = max(STAGE1_TOL[kind] * abs(e[k]), abs(a[k] - e[k]))
+            assert abs(g[k] - e[k]) <= tol, (k, g[k], e[k])
+
+
+def test_stage2_flagship_graphed_step_matches_eager(cuda):
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train.flagship import (flagship_config,
+                                                          zoo_train_state)
+
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg = flagship_config(entry)
+    t = cfg.train
+    assert cfg.msd.dense_groups_max_g == 16 and t.g_warmup_steps > 0
+    state0 = zoo_train_state(cfg, entry, cuda, seed=0)
+    wav = (0.5 * torch.tanh(torch.randn(
+        (t.batch_size, t.segment_length),
+        generator=torch.Generator().manual_seed(5)))).to(cuda)
+    runs = []
+    for graphs in (False, False, True):
+        st, out = state0, []
+        with (contextlib.nullcontext() if graphs
+              else _graphs.disable_graphs()):
+            for step in (0, t.g_warmup_steps):  # both sides of the gate
+                before = logmel_kernel.n_launches
+                st, m = stage2.train_step(
+                    cfg, dataclasses.replace(st, step=step), wav)
+                assert logmel_kernel.n_launches == before + 1
+                out.append(m)
+        runs.append(([g[k].clone() for g in state_groups(st)
+                      for k in sorted(g)], out))
+    program = stage2.graphed_step(cfg, wav.shape, wav.device).program
+    assert program.graph is not None and program.launches_per_replay == 1
+    (eager, m_eager), (again, m_again), (graphed, m_graphed) = runs
+    for e, a, g in zip(eager, again, graphed):
+        tol = max(STATE_RTOL * float(e.abs().max()),
+                  float((a - e).abs().max()))
+        assert float((g - e).abs().max()) <= tol
+    for e, a, g in zip(m_eager, m_again, m_graphed):
+        for k in e:
+            if k == "d_update_norm" and e[k] == 0:  # inside the gate
+                assert g[k] == 0
+                continue
             kind = "grad_norm" if k.endswith("_norm") else "loss"
             tol = max(STAGE1_TOL[kind] * abs(e[k]), abs(a[k] - e[k]))
             assert abs(g[k] - e[k]) <= tol, (k, g[k], e[k])

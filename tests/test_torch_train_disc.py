@@ -5,10 +5,18 @@ jittered, so that each layer has a gain near one and the logits are far
 from zero), the same numpy waveform goes through the JAX
 ``CombinedDiscriminator`` and the port's; every logit and every feature tap
 is compared after permuting the port's ``[B, C, ...]`` back to JAX's
-channel-last layout. The JAX TPU relayouts (``dense_groups_max_g``,
-``f_fold``) must give what the port's logical layers give. Tolerance: 1e-4
-of each tap's peak magnitude, in fp32 (up to seven convolutions of up to
-41 x 1024 terms, and FFTs on the MRD side, summed in other orders).
+channel-last layout. With ``dense_groups_max_g`` both packages run the
+MSD's grouped convolutions of up to that many groups as dense ones over
+block-diagonal kernels; JAX's MRD relayout ``f_fold`` must give what the
+port's logical layer gives. Tolerance: 1e-4 of each tap's peak magnitude,
+in fp32 (up to seven convolutions of up to 41 x 1024 terms, and FFTs on
+the MRD side, summed in other orders).
+
+The port's dense and grouped MSD, from one set of parameters (the
+flagship's widths, fp32): every logit and tap, and the gradient of every
+``v``, ``g`` and ``b`` of a loss over all of them, within 1e-5 of each
+tensor's peak magnitude; the parameter names and shapes are the same, so
+one ``state_dict`` loads into both.
 """
 
 import dataclasses
@@ -27,6 +35,7 @@ from music_synthesis_tpu_torch import config
 from music_synthesis_tpu_torch.convert import to_state_dict
 from music_synthesis_tpu_torch.models.discriminators import (
     CombinedDiscriminator,
+    MultiScaleDiscriminator,
 )
 
 torch.set_num_threads(1)
@@ -97,12 +106,13 @@ def test_tiny_discriminator_matches_jax(input_mode):
 
 @pytest.mark.parametrize("dense_max_g, f_fold, input_mode", [
     (0, 0, "logmag"),
-    (16, 4, "logmag"),   # the flagship's relayouts
+    (16, 4, "logmag"),   # the flagship's: dense MSD on both sides
     (0, 4, "complex"),
     (16, 0, "complex"),
 ])
 def test_flagship_discriminator_matches_jax(dense_max_g, f_fold, input_mode):
-    """The flagship's MSD and MRD at full width, batch 1 x 8192, fp32."""
+    """The flagship's MSD and MRD at full width, batch 1 x 8192, fp32;
+    with ``dense_max_g`` 16 JAX's dense MSD against the port's."""
     jmsd = dataclasses.replace(jax_config.MSDConfig(),
                                dense_groups_max_g=dense_max_g)
     jmrd = dataclasses.replace(jax_config.MRDConfig(), f_fold=f_fold,
@@ -127,3 +137,54 @@ def test_seeded_init_has_jax_parameter_names_and_shapes(preset, input_mode):
         torch.Generator().manual_seed(0))
     got = {k: tuple(v.shape) for k, v in port.named_parameters()}
     assert got == want
+
+
+DENSE_TOL = 1e-5
+
+
+def test_dense_groups_equal_grouped_convolutions_with_their_gradients():
+    grouped_cfg = config.MSDConfig()
+    dense_cfg = dataclasses.replace(grouped_cfg, dense_groups_max_g=16)
+    grouped = MultiScaleDiscriminator(grouped_cfg,
+                                      torch.Generator().manual_seed(3))
+    dense = MultiScaleDiscriminator(dense_cfg)
+    lowered = [n for n, m in dense.named_modules()
+               if getattr(m, "dense_groups", False)]
+    assert lowered == [f"scale_{s}.down_{i}" for s in range(3)
+                       for i in range(2)]  # groups 4 and 16; 64, 256 stay
+    assert {k: v.shape for k, v in dense.state_dict().items()} == {
+        k: v.shape for k, v in grouped.state_dict().items()}
+    # Gains near one and small biases (as ``_unit_gain``), so that each
+    # layer keeps its input's scale and the logits are far from zero.
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, p in grouped.named_parameters():
+            r = torch.randn(p.shape, generator=gen)
+            if name.endswith(".g"):
+                p.copy_(2.0 ** 0.5 * (1.0 + 0.3 * r))
+            elif name.endswith(".b"):
+                p.copy_(0.05 * r)
+    dense.load_state_dict(grouped.state_dict(), strict=True)
+    wav = torch.from_numpy(_wav(1, 8192, seed=4))
+
+    def outputs_and_grads(module):
+        logits, feats = module(wav)
+        outs = logits + [f for head in feats for f in head]
+        loss = sum((o.float() * torch.linspace(-1, 1, o.shape[-1])).sum()
+                   for o in outs)
+        names, params = zip(*module.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+        return [o.detach() for o in outs], dict(zip(names, grads))
+
+    want_outs, want_grads = outputs_and_grads(grouped)
+    got_outs, got_grads = outputs_and_grads(dense)
+    for got, want in zip(got_outs, want_outs):
+        scale = float(want.abs().max())
+        assert scale > 1e-3
+        torch.testing.assert_close(got, want, rtol=0, atol=DENSE_TOL * scale)
+    assert got_grads.keys() == want_grads.keys()
+    for name, want in want_grads.items():
+        scale = float(want.abs().max())
+        assert scale > 0, name
+        torch.testing.assert_close(got_grads[name], want, rtol=0,
+                                   atol=DENSE_TOL * scale, msg=name)
