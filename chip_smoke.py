@@ -113,11 +113,19 @@ at the flagship's full width with the committed zoo weights, in phases:
    mean of the shards' ratios, is not compared); the ranks' states must
    be equal and each rank's stage-2 step must launch the kernel once; then
    the bf16 flagship step per rank and the gradient all-reduce, timed (two
-   ranks on one card: not a scaling number); one NCCL rank runs the same
-   check and times the DP step against the plain step; two NCCL ranks on
-   two cards when there are two (else a line says so); the flagship
-   vocoder's sequence-sharded vocode over ``[cuda:0, cuda:0]`` against one
-   device (interior, ``FP32_TOL``); the serving split and gather over
+   ranks on one card: not a scaling number; gloo's steps run eagerly);
+   one NCCL rank, whose DP steps replay CUDA graphs with NCCL's
+   collectives captured, runs the same four checks, then per stage and
+   mode the flagship DP step (stage 2 in bf16 at [16, 8192], 3 steps
+   inside the warmup gate and 3 past it; stage 1 at [16, 128, 128], 6
+   steps) graphed against eager, every metric and state tensor bit for
+   bit, one log-mel launch per stage-2 replay, ``train_step_many`` (K = 4)
+   against four steps bit for bit, and times the DP step graphed and
+   eager and the single-process step graphed; two NCCL ranks on two cards
+   run the same when there are two (else a line says so); the flagship
+   vocoder's sequence-sharded vocode over ``[cuda:0, cuda:0]``, one graph
+   per shard, against its eager run (bit for bit) and one device
+   (interior, ``FP32_TOL``); the serving split and gather over
    ``[cuda:0, cuda:0]`` against one device (``FP32_TOL``), and
    ``mesh_devices=2`` refused on a one-card machine (this process
    launches the kernel once here, in the single-process stage-2 step);
@@ -187,10 +195,14 @@ On the card the entry points replay CUDA graphs (``_graphs.py``): phases
 its card-vs-CPU check), 7 (the single-process stage-1 step), 8 (both
 training CLIs, the exported pair's service), 9 (every service, its
 buckets and streams, ``/reload``'s new service), 10 (``eval_checkpoint``,
-``vocode``, ``generate``), 12's single-process reference steps, 13's
-``eval_checkpoint --run`` and 14 (every scenario but the host clip and
-the kernel's own) run through them; the DP steps, the traced steps and the
-kernel's own checks launch eagerly. A graph's warm-up and capture build it
+``vocode``, ``generate``), 12 (the NCCL ranks' DP steps, the
+single-process reference steps, seqshard), 13's ``eval_checkpoint --run``
+and 14 (every scenario but the host clip and the kernel's own) run through
+them; the gloo ranks' DP steps, the traced steps and the kernel's own
+checks launch eagerly. Every busy share printed is the union of the
+device's activity intervals over the window (``utils.profiling.
+device_busy``: overlapping kernels count once), beside the summed kernel
+time. A graph's warm-up and capture build it
 and count no kernel launch; each replay counts the launches its capture
 recorded.
 
@@ -416,13 +428,16 @@ def test_audio(rng: np.random.Generator, batch: int, length: int,
 
 
 def profile_launches(fn, calls: int = 3) -> dict:
-    """Kernel launches and device time per ``fn()`` call, and the device's
-    busy share of the window, from ``torch.profiler`` over ``calls`` calls
-    after a synchronise (the profiler adds host time to every launch, so
-    the window is longer than an unprofiled one)."""
+    """Kernel launches and kernel time (the summed time of the device's
+    kernels, copies and sets) per ``fn()`` call, and the device's busy
+    share of the window (the union of those activities' intervals,
+    ``utils.profiling.device_busy``), from ``torch.profiler`` over
+    ``calls`` calls after a synchronise (the profiler adds host time to
+    every launch, so the window is longer than an unprofiled one)."""
     from torch.profiler import ProfilerActivity, profile
 
-    from music_synthesis_tpu_torch.utils.profiling import device_events
+    from music_synthesis_tpu_torch.utils.profiling import (device_busy,
+                                                           device_events)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -435,9 +450,9 @@ def profile_launches(fn, calls: int = 3) -> dict:
     events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     return {"launches_per_call": sum(e.count for e in events) / calls,
-            "device_ms_per_call": device_us / calls / 1e3,
+            "kernel_ms_per_call": device_us / calls / 1e3,
             "profiled_wall_ms_per_call": 1e3 * wall / calls,
-            "device_busy": device_us / 1e6 / wall}
+            "device_busy": device_busy(prof, wall)}
 
 
 def card_name_and_power() -> str:
@@ -973,7 +988,7 @@ def phase_stage1_training(rng: np.random.Generator) -> dict:
         f"warm-ups {', '.join(f'{x:.1f}' for x in warm)}), peak memory {peak} B "
         f"({peak - baseline} B above the {baseline} B held before)")
     log(f"[stage1] under the profiler: {prof['launches_per_call']:.0f} kernel "
-        f"launches and {prof['device_ms_per_call']:.3f} ms of kernels per "
+        f"launches and kernel time {prof['kernel_ms_per_call']:.3f} ms per "
         f"step, {prof['profiled_wall_ms_per_call']:.3f} ms wall per step, "
         f"device busy {prof['device_busy']:.3f} of the window")
     return {"median_step_ms": median_ms, "step_ms": timed, "warmup_ms": warm,
@@ -1504,6 +1519,19 @@ DP_RANKS = 2
 DP_BATCH = 16  # the flagships' global batch, DP_BATCH // DP_RANKS per rank
 
 
+def _dp_step(stage: int, dp: str, cfg):
+    """The port's DP step of ``stage`` following ``dp`` over the default
+    group."""
+    from music_synthesis_tpu_torch.parallel import dp as dp_mod
+    from music_synthesis_tpu_torch.parallel import shard_map_dp
+
+    make = {(2, "jit"): dp_mod.make_dp_stage2_step,
+            (2, "shard_map"): shard_map_dp.make_shardmap_stage2_step,
+            (1, "jit"): dp_mod.make_dp_stage1_step,
+            (1, "shard_map"): shard_map_dp.make_shardmap_stage1_step}
+    return make[stage, dp](cfg)
+
+
 def _rank_rows(n: int) -> slice:
     from music_synthesis_tpu_torch.parallel import mesh
 
@@ -1530,16 +1558,10 @@ def _rank_check(job: dict) -> dict:
     the log-mel launches, and its parameters' distance to the
     single-process step's."""
     from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
-    from music_synthesis_tpu_torch.parallel import dp as dp_mod
-    from music_synthesis_tpu_torch.parallel import shard_map_dp
     from music_synthesis_tpu_torch.train.checkpoint import restore_checkpoint
 
     dev = torch.device("cuda", torch.cuda.current_device())
-    make = {(2, "jit"): dp_mod.make_dp_stage2_step,
-            (2, "shard_map"): shard_map_dp.make_shardmap_stage2_step,
-            (1, "jit"): dp_mod.make_dp_stage1_step,
-            (1, "shard_map"): shard_map_dp.make_shardmap_stage1_step}
-    step = make[job["stage"], job["dp"]](job["cfg"])
+    step = _dp_step(job["stage"], job["dp"], job["cfg"])
     state = restore_checkpoint(job["state"], dev)
     rows = _rank_rows(job["batch"].shape[0])
     batch = torch.from_numpy(job["batch"][rows]).to(dev)
@@ -1562,9 +1584,12 @@ def _rank_check(job: dict) -> dict:
 
 def _rank_time(job: dict) -> dict:
     """The flagship's bf16 DP step (``--dp shard_map``, the "fast"
-    kernel) on this rank's rows: one warm-up, then ``job["steps"]`` steps
-    timed with CUDA events; with ``job["plain"]`` the single-process step
-    on the same rows is timed the same way (the overhead of the group);
+    kernel) on this rank's rows as it runs (one CUDA graph over NCCL,
+    eager over gloo): one warm-up (a graph's build), then ``job["steps"]``
+    steps timed with CUDA events; with ``job["plain"]`` the same DP step
+    eager (``disable_graphs``) and the single-process step as it runs (its
+    graph) on the same rows, timed the same way, and one more DP step
+    under ``profile_launches`` (the device's activities and busy share);
     and the gradient all-reduce alone on tensors of G's and D's sizes."""
     from music_synthesis_tpu_torch._graphs import disable_graphs
     from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
@@ -1594,13 +1619,20 @@ def _rank_time(job: dict) -> dict:
         return out, m
 
     before = logmel_kernel.n_launches
-    dp_ms, m = timed(make_shardmap_stage2_step(cfg))
+    step = make_shardmap_stage2_step(cfg)
+    dp_ms, m = timed(step)
+    dp_eager_ms = plain_ms = prof = None
+    if job["plain"]:
+        holder = {"state": restore_checkpoint(job["state"], dev)}
+
+        def one():
+            holder["state"], _ = step(holder["state"], wav)
+
+        prof = profile_launches(one, calls=1)
+        with disable_graphs():
+            dp_eager_ms = timed(step)[0]
+        plain_ms = timed(lambda s, w: stage2.train_step(cfg, s, w))[0]
     launches = logmel_kernel.n_launches - before
-    # The plain step eager, as the DP step runs (its graph would time
-    # another thing than the group's overhead).
-    with disable_graphs():
-        plain_ms = (timed(lambda s, w: stage2.train_step(cfg, s, w))[0]
-                    if job["plain"] else None)
     state = restore_checkpoint(job["state"], dev)
     reduce_ms = {}
     for part in ("g", "d"):
@@ -1614,15 +1646,105 @@ def _rank_time(job: dict) -> dict:
             torch.cuda.synchronize()
             times.append(1e3 * (time.perf_counter() - t0))
         reduce_ms[part] = float(np.median(times))
-    return {"dp_ms": dp_ms, "plain_ms": plain_ms, "reduce_ms": reduce_ms,
-            "launches": launches, "metrics": m,
+    return {"dp_ms": dp_ms, "dp_eager_ms": dp_eager_ms, "plain_ms": plain_ms,
+            "profile": prof, "reduce_ms": reduce_ms, "launches": launches,
+            "metrics": m,
             "n_params": {p: sum(v.numel() for v in getattr(
                 state, f"{p}_params").values()) for p in ("g", "d")}}
 
 
+def _state_tensors(state) -> list:
+    """Every tensor of a training state, group by group, copied out."""
+    from music_synthesis_tpu_torch.train.state import state_groups
+
+    return [_outputs([g[k] for k in sorted(g)]) for g in state_groups(state)]
+
+
+def _rank_graph(job: dict) -> dict:
+    """The DP step of one stage and mode at the flagship's width and
+    recipe (stage 2 in bf16, the "fast" kernel) on this rank's rows of
+    ``job["batches"][0]``, from one saved state, with the draws its own:
+    3 steps inside the warmup gate and 3 past it (stage 1: 6 steps) eager
+    (``disable_graphs``) and as the step runs (one CUDA graph per rank
+    over NCCL), every metric and state tensor compared bit for bit; the
+    log-mel launches of each run and per replay; with ``job["many"]``
+    ``train_step_many`` (K = 4) over this rank's rows of ``batches``
+    against four steps, past the gate."""
+    import torch.distributed as dist
+
+    from music_synthesis_tpu_torch._graphs import disable_graphs, pool_bytes
+    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.parallel.shard_map_dp import (
+        make_shardmap_stage2_many)
+    from music_synthesis_tpu_torch.train import stage1, stage2
+    from music_synthesis_tpu_torch.train.checkpoint import restore_checkpoint
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    stage, dp, cfg = job["stage"], job["dp"], job["cfg"]
+    step = _dp_step(stage, dp, cfg)
+    rows = _rank_rows(job["batches"].shape[1])
+    batches = torch.from_numpy(np.ascontiguousarray(
+        job["batches"][:, rows])).to(dev)
+    gate = cfg.train.g_warmup_steps if stage == 2 else None
+
+    def start(past: bool):
+        st = restore_checkpoint(job["state"], dev)
+        return dataclasses.replace(st, step=gate) if past else st
+
+    def six(graphs: bool) -> tuple:
+        st, metrics = start(False), []
+        before = logmel_kernel.n_launches
+        with contextlib.ExitStack() as stack:
+            if not graphs:
+                stack.enter_context(disable_graphs())
+            for i in range(6):
+                if i == 3 and gate is not None:
+                    st = dataclasses.replace(st, step=gate)
+                st, m = step(st, batches[0])
+                metrics.append(m)
+        return (metrics, _state_tensors(st), logmel_kernel.n_launches - before,
+                _checksum(st))
+
+    t0 = time.perf_counter()
+    eager_m, eager_s, eager_launches, _ = six(False)
+    graphed_m, graphed_s, graphed_launches, checksum = six(True)
+    if stage == 2:
+        graphed = stage2.graphed_step(cfg, batches[0].shape, dev, "fast",
+                                      dist.group.WORLD, dp)
+    else:
+        graphed = stage1.graphed_step(cfg, batches[0].shape, dev,
+                                      dist.group.WORLD, dp)
+    program = graphed.program
+    out = {"stage": stage, "dp": dp, "metrics_bitwise": graphed_m == eager_m,
+           "state_max_abs": {name: _gap(g, e) for name, g, e in zip(
+               STAGE2_GRAPH_NAMES, graphed_s, eager_s)},
+           "eager_launches": eager_launches,
+           "graphed_launches": graphed_launches,
+           "captured": program is not None and program.graph is not None,
+           "launches_per_replay": program.launches_per_replay,
+           "pool_bytes": pool_bytes(program.pool, dev),
+           "checksum": checksum, "last_metrics": graphed_m[-1]}
+    if job["many"]:
+        before = logmel_kernel.n_launches
+        st, m_many = make_shardmap_stage2_many(cfg)(start(True), batches)
+        many_launches = logmel_kernel.n_launches - before
+        s_many = _state_tensors(st)
+        st = start(True)
+        before = logmel_kernel.n_launches
+        for w in batches:
+            st, m_four = step(st, w)
+        out["many"] = {"metrics_bitwise": m_many == m_four,
+                       "state_max_abs": max(_gap(a, b) for a, b in zip(
+                           s_many, _state_tensors(st))),
+                       "launches": many_launches,
+                       "four_launches": logmel_kernel.n_launches - before}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 def dp_rank_jobs(jobs: list) -> list:
     """What each rank of phase 12 runs: ``jobs`` in order."""
-    kinds = {"check": _rank_check, "time": _rank_time}
+    kinds = {"check": _rank_check, "time": _rank_time, "graph": _rank_graph}
     return [kinds[j["kind"]](j) for j in jobs]
 
 
@@ -1730,11 +1852,135 @@ def _hold_to_single(label: str, res: list, want: dict, stage: int,
     return rel
 
 
+def _graph_jobs(tmp: Path, seed: int) -> list:
+    """Phase 12's graph jobs (``_rank_graph``), each mode of each stage:
+    the stage-2 flagship in bf16 (zoo G, seeded D) at step 0 on four
+    global batches [16, 8192] (``train_step_many`` in ``shard_map``'s
+    job), the stage-1 flagship at step 0 on one batch [16, 128, 128]."""
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.train.checkpoint import save_checkpoint
+    from music_synthesis_tpu_torch.train.flagship import (
+        flagship_config, stage1_flagship_config, zoo_train_state)
+
+    rng = np.random.default_rng(seed + 1)
+    jobs = []
+    for stage, name in ((2, "vocoder_istft"), (1, "specgan_flux")):
+        entry = zoo.load_pretrained(name)
+        cfg = (flagship_config(entry) if stage == 2
+               else stage1_flagship_config(entry))
+        path = tmp / f"dp_graph_state{stage}.pt"
+        save_checkpoint(path, zoo_train_state(cfg, entry, "cuda",
+                                              seed=cfg.train.seed))
+        if stage == 2:
+            batches = np.stack([test_audio(
+                rng, DP_BATCH, cfg.train.segment_length,
+                cfg.frontend.sample_rate) for _ in range(4)])
+        else:
+            batches = stage1_patches(rng, cfg, "cpu").numpy()[None]
+        check(batches.shape[1] == cfg.train.batch_size == DP_BATCH,
+              f"stage {stage}: the flagship's batch is {DP_BATCH}")
+        jobs += [{"kind": "graph", "stage": stage, "dp": dp, "cfg": cfg,
+                  "state": str(path), "batches": batches,
+                  "many": stage == 2 and dp == "shard_map"}
+                 for dp in ("jit", "shard_map")]
+    return jobs
+
+
+def _hold_graphs(label: str, res: list) -> dict:
+    """Every rank's graph job (``_rank_graph``): captured, graphed equal to
+    eager bit for bit, one log-mel launch per replay in stage 2 and none
+    in stage 1, ``train_step_many`` equal to four steps, the ranks'
+    states equal."""
+    r0 = res[0]
+    per = 1 if r0["stage"] == 2 else 0
+    log(f"[dp] {label}: graphed DP step against eager, "
+        f"{'3 + 3 steps across the warmup gate' if per else '6 steps'}: "
+        f"metrics equal bit for bit {[r['metrics_bitwise'] for r in res]}, "
+        f"state max |graphed - eager| " + ", ".join(
+            f"{k} {v:.3g}" for k, v in r0["state_max_abs"].items())
+        + f"; log-mel launches eager {r0['eager_launches']}, graphed "
+        f"{r0['graphed_launches']} ({r0['launches_per_replay']} per replay); "
+        f"pool {r0['pool_bytes']} B; {r0['seconds']:.1f} s")
+    for r in res:
+        check(r["captured"], f"{label}: no graph was captured")
+        check(r["metrics_bitwise"] and not any(r["state_max_abs"].values()),
+              f"{label}: graphed differs from eager {r['state_max_abs']}")
+        check(r["launches_per_replay"] == per
+              and r["graphed_launches"] == r["eager_launches"] == 6 * per,
+              f"{label}: log-mel launches {r['eager_launches']} eager, "
+              f"{r['graphed_launches']} graphed, {r['launches_per_replay']} "
+              "per replay")
+        if "many" in r:
+            many = r["many"]
+            check(many["metrics_bitwise"] and many["state_max_abs"] == 0
+                  and many["launches"] == many["four_launches"] == 4,
+                  f"{label}: train_step_many K=4 against four steps {many}")
+    if "many" in r0:
+        log(f"[dp] {label}: train_step_many K=4 against four graphed steps: "
+            f"metrics equal {r0['many']['metrics_bitwise']}, state max "
+            f"|diff| {r0['many']['state_max_abs']:.3g}, log-mel launches "
+            f"{r0['many']['launches']} and {r0['many']['four_launches']}")
+    check(len({r["checksum"] for r in res}) == 1,
+          f"{label}: the ranks' states differ")
+    return r0
+
+
+def _hold_nccl(label: str, key: str, jobs: list, ranks: list, inputs: dict,
+               out: dict) -> None:
+    """Phase 12's NCCL jobs (checks, graph jobs, timing) as ``ranks``
+    returned them, held and logged; their log-mel launches added to
+    ``out``."""
+    card = out["card"]
+    for n, job in enumerate(jobs):
+        res = [r[n] for r in ranks]
+        where = f"stage {job['stage']} --dp {job['dp']}, {label}" \
+            if "stage" in job else label
+        if job["kind"] == "check":
+            skip = ("g_rms_ratio",) if job["dp"] == "shard_map" else ()
+            out["gaps"][f"stage{job['stage']}_{job['dp']}_nccl_{key}"] = \
+                _hold_to_single(where + " (graphed)", res,
+                                inputs[job["stage"]]["metrics"], job["stage"],
+                                skip)
+        elif job["kind"] == "graph":
+            out.setdefault(f"graphs_{key}", []).append(
+                _hold_graphs(where, res))
+            out["dp_graph_replays"] += sum(
+                r["graphed_launches"] + r.get("many", {}).get("launches", 0)
+                + r.get("many", {}).get("four_launches", 0) for r in res)
+            out["dp_launches"] += sum(
+                r["eager_launches"] + r["graphed_launches"]
+                + r.get("many", {}).get("launches", 0)
+                + r.get("many", {}).get("four_launches", 0) for r in res)
+            continue
+        out["dp_launches"] += sum(r["launches"] for r in res)
+    t = ranks[0][-1]
+    med = {k: float(np.median(t[k])) for k in ("dp_ms", "dp_eager_ms",
+                                               "plain_ms")}
+    out[f"nccl_{key}"] = [r[-1] for r in ranks]
+
+    def ms(k):
+        return ", ".join(f"{x:.2f}" for x in t[k]) + f" (median {med[k]:.2f})"
+
+    log(f"[dp] {label}, flagship bf16 [{DP_BATCH // len(ranks)}, 8192] per "
+        f"rank (CUDA events, each step with its metrics' read): DP step "
+        f"graphed {ms('dp_ms')} ms, eager {ms('dp_eager_ms')} ms; "
+        f"single-process step graphed {ms('plain_ms')} ms; graphed DP - "
+        f"graphed single {med['dp_ms'] - med['plain_ms']:+.2f} ms; one "
+        f"graphed DP step under the profiler: "
+        f"{t['profile']['launches_per_call']:.0f} device activities, kernel "
+        f"time {t['profile']['kernel_ms_per_call']:.2f} ms, busy (union) "
+        f"{t['profile']['device_busy']:.3f} of "
+        f"{t['profile']['profiled_wall_ms_per_call']:.2f} ms; "
+        f"all-reduce G {t['reduce_ms']['g']:.3f} ms, D "
+        f"{t['reduce_ms']['d']:.3f} ms; on {card}")
+
+
 def phase_data_parallel(tmp: Path, seed: int = DEFAULT_PATH_SEED) -> dict:
     """Both training steps over ranks at the flagships' full width (main
     path), sequence-sharded vocoding and the serving split over a device
     list; the log-mel launches are counted in the ranks."""
     from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch._graphs import disable_graphs
     from music_synthesis_tpu_torch.parallel import mesh
     from music_synthesis_tpu_torch.parallel.seqshard import (
         make_seqshard_vocode, receptive_field_frames)
@@ -1757,7 +2003,8 @@ def phase_data_parallel(tmp: Path, seed: int = DEFAULT_PATH_SEED) -> dict:
     time_job = {"kind": "time", "cfg": cfg16, "state": str(tmp / "dp_state_bf16.pt"),
                 "batch": inputs[2]["batch"], "steps": 3, "plain": False}
 
-    # Two gloo ranks on one card: both modes of both stages, then timing.
+    # Two gloo ranks on one card, eager (gloo's collectives run on the
+    # host): both modes of both stages, then timing.
     jobs = ([_check_job(inputs, s, dp) for s in (2, 1)
              for dp in ("jit", "shard_map")] + [time_job])
     t0 = time.perf_counter()
@@ -1784,41 +2031,29 @@ def phase_data_parallel(tmp: Path, seed: int = DEFAULT_PATH_SEED) -> dict:
         f"({timing[0]['n_params']['d']} floats); on {card}")
     out["dp_launches"] = sum(r[n]["launches"] for r in ranks
                              for n in range(len(jobs)))
+    out["dp_graph_replays"] = 0
 
-    # One NCCL rank: NCCL's init and the reduction path on the card.
+    # NCCL: every check job (now one graph per rank), the graph jobs and
+    # the timing, on one rank; on two cards when there are two.
+    nccl_jobs = ([_check_job(inputs, s, dp) for s in (2, 1)
+                  for dp in ("jit", "shard_map")]
+                 + _graph_jobs(tmp, seed) + [{**time_job, "plain": True}])
     t0 = time.perf_counter()
-    (nccl,) = mesh.launch(dp_rank_jobs, 1, ([_check_job(inputs, 2, "jit"),
-                                             {**time_job, "plain": True}],),
-                          backend="nccl", devices=["cuda:0"])
+    ranks = mesh.launch(dp_rank_jobs, 1, (nccl_jobs,), backend="nccl",
+                        devices=["cuda:0"])
     out["nccl_s"] = time.perf_counter() - t0
-    gaps["stage2_nccl_world1"] = _hold_to_single(
-        "stage 2 --dp jit, 1 NCCL rank", [nccl[0]],
-        inputs[2]["metrics"], 2)
-    t = nccl[1]
-    dp_med, plain_med = float(np.median(t["dp_ms"])), float(np.median(t["plain_ms"]))
-    out["nccl_world1"] = t
-    log(f"[dp] 1 NCCL rank, flagship bf16 [16, 8192]: DP step "
-        f"{', '.join(f'{x:.2f}' for x in t['dp_ms'])} ms (median "
-        f"{dp_med:.2f}), plain step {', '.join(f'{x:.2f}' for x in t['plain_ms'])} "
-        f"ms (median {plain_med:.2f}): overhead {dp_med - plain_med:+.2f} ms; "
-        f"all-reduce G {t['reduce_ms']['g']:.3f} ms, D {t['reduce_ms']['d']:.3f} "
-        f"ms; on {card}")
-    out["dp_launches"] += nccl[0]["launches"] + t["launches"]
+    _hold_nccl("1 NCCL rank", "world1", nccl_jobs, ranks, inputs, out)
     if torch.cuda.device_count() >= 2:
-        ranks = mesh.launch(dp_rank_jobs, 2, ([_check_job(inputs, 2, "jit"),
-                                               time_job],),
-                            backend="nccl", devices=["cuda:0", "cuda:1"])
-        gaps["stage2_nccl_2cards"] = _hold_to_single(
-            "stage 2 --dp jit, 2 NCCL ranks on cuda:0/cuda:1",
-            [r[0] for r in ranks], inputs[2]["metrics"], 2)
-        out["nccl_2cards"] = [r[1] for r in ranks]
-        out["dp_launches"] += sum(r[0]["launches"] + r[1]["launches"]
-                                  for r in ranks)
+        ranks = mesh.launch(dp_rank_jobs, 2, (nccl_jobs,), backend="nccl",
+                            devices=["cuda:0", "cuda:1"])
+        _hold_nccl("2 NCCL ranks on cuda:0/cuda:1", "2cards", nccl_jobs,
+                   ranks, inputs, out)
     else:
         log(f"[dp] 2 NCCL ranks on two cards: not run ({torch.cuda.device_count()} "
             f"card visible; NCCL refuses two ranks on one device)")
 
-    # Sequence-sharded vocoding over [cuda:0, cuda:0], fp32, TF32 off.
+    # Sequence-sharded vocoding over [cuda:0, cuda:0], fp32, TF32 off: one
+    # graph per shard, against its eager run and against one device.
     voc = entry.model("cuda", "float32")
     t_frames = 344  # 4 s at hop 256
     mel = torch.from_numpy(np.random.default_rng(seed).standard_normal(
@@ -1826,15 +2061,26 @@ def phase_data_parallel(tmp: Path, seed: int = DEFAULT_PATH_SEED) -> dict:
     fn = make_seqshard_vocode(voc, ["cuda:0", "cuda:0"])
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False), \
             torch.inference_mode():
-        sharded = fn(mel)
+        with disable_graphs():
+            eager = fn(mel).clone()
+        sharded = [fn(mel).clone() for _ in range(2)]
         direct = voc(mel)
+    programs = fn.programs[torch.device("cuda:0")]
+    check(len(programs.programs) == 2, f"seqshard captured "
+          f"{len(programs.programs)} graphs, not one per shard")
+    graphed_gap = max(_gap([g], [eager]) for g in sharded)
     h = receptive_field_frames(voc.cfg) + 2
     mid = slice(h * voc.cfg.hop_length, -h * voc.cfg.hop_length)
-    check(sharded.shape == direct.shape, f"seqshard {tuple(sharded.shape)}")
-    err = (sharded[:, mid] - direct[:, mid]).abs().max().item()
+    check(sharded[0].shape == direct.shape, f"seqshard {tuple(sharded[0].shape)}")
+    err = (sharded[0][:, mid] - direct[:, mid]).abs().max().item()
+    out["seqshard"] = {"graphed_vs_eager": graphed_gap, "err": err,
+                       "pool_bytes": programs.pool_bytes()}
     log(f"[dp] seqshard vocode [2, {t_frames}] over [cuda:0, cuda:0] (halo "
-        f"{h} frames) vs one device, interior: max abs err {err:.3g} "
-        f"(FP32_TOL {FP32_TOL})")
+        f"{h} frames, one graph per shard, pool {programs.pool_bytes()} B): "
+        f"max |graphed - eager| {graphed_gap:.3g} over two calls (the first "
+        f"shard's piece copied out before the second replay); interior vs "
+        f"one device: max abs err {err:.3g} (FP32_TOL {FP32_TOL})")
+    check(graphed_gap == 0, f"seqshard graphed vs eager: {graphed_gap}")
     check(err <= FP32_TOL, f"seqshard vocode: {err} > {FP32_TOL}")
     out["seqshard_err"] = err
 
@@ -2537,9 +2783,8 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
     from music_synthesis_tpu_torch.train import stage2
     from music_synthesis_tpu_torch.train.flagship import (flagship_config,
                                                           zoo_train_state)
-    from music_synthesis_tpu_torch.train.state import state_groups
     from music_synthesis_tpu_torch.utils.profiling import (
-        OUTSIDE, TRACE_FILE, region_split, step_regions, trace)
+        OUTSIDE, TRACE_FILE, device_busy, region_split, step_regions, trace)
 
     t_start = time.perf_counter()
     entry = zoo.load_pretrained("vocoder_istft")
@@ -2554,9 +2799,6 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
     wav = batches[0]
     out = {}
 
-    def copy_state(st) -> list:
-        return [_outputs([g[k] for k in sorted(g)]) for g in state_groups(st)]
-
     # (a) 3 + 3 steps, both sides of the gate, one program.
     def six(graphs: bool) -> tuple:
         st, metrics, frozen = state0, [], None
@@ -2565,15 +2807,15 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
                 stack.enter_context(disable_graphs())
             for i in range(6):
                 if i == 3:
-                    d = copy_state(st)
-                    frozen = (_gap(d[1], copy_state(state0)[1]) == 0
+                    d = _state_tensors(st)
+                    frozen = (_gap(d[1], _state_tensors(state0)[1]) == 0
                               and all(_gap(a, b) == 0 for a, b in zip(
-                                  d[4:6], copy_state(state0)[4:6]))
+                                  d[4:6], _state_tensors(state0)[4:6]))
                               and st.d_opt.count == 0)
                     st = dataclasses.replace(st, step=t.g_warmup_steps)
                 st, m = stage2.train_step(cfg, st, wav)
                 metrics.append(m)
-        return metrics, copy_state(st), frozen, st.d_opt.count
+        return metrics, _state_tensors(st), frozen, st.d_opt.count
 
     runs = [six(False), six(False), six(True)]
     (eager_a, sa, fa, ca), (eager_b, sb, fb, cb), (graphed, sg, fg, cg) = runs
@@ -2618,13 +2860,13 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
     before = logmel_kernel.n_launches
     st, m_many = stage2.train_step_many(cfg, past, batches)
     many_launches = logmel_kernel.n_launches - before
-    s_many = copy_state(st)
+    s_many = _state_tensors(st)
     st = past
     before = logmel_kernel.n_launches
     for w in batches:
         st, m_four = stage2.train_step(cfg, st, w)
     four_launches = logmel_kernel.n_launches - before
-    s_four = copy_state(st)
+    s_four = _state_tensors(st)
     many_gap = {name: _gap(a, b)
                 for name, a, b in zip(STAGE2_GRAPH_NAMES, s_many, s_four)}
     rel_many = rel([m_many], [m_four])
@@ -2656,8 +2898,9 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
     out["msd"] = _msd_dense_against_grouped(cfg, state0.d_params, wav)
 
     # (e) the step, eager and graphed, with and without dense_groups. The
-    # eager launches, kernel ms and busy share come from the traced step
-    # that region_split reads (its first traced step is dropped).
+    # eager launches and kernel ms come from the traced step that
+    # region_split reads (its first traced step is dropped), the eager
+    # busy share from the union of both traced steps' device intervals.
     grouped_cfg = dataclasses.replace(cfg, msd=dataclasses.replace(
         cfg.msd, dense_groups_max_g=0))
     top = [OUTSIDE, "frontend", "generator_fwd", "d_step", "g_step", "ema"]
@@ -2672,15 +2915,16 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
             eager_ms = time_ms(one, samples=3, reps=1, warmup=1)
         t_trace = time.perf_counter()
         with tempfile.TemporaryDirectory(prefix="stage2_regions_") as d:
+            torch.cuda.synchronize()
             with trace(d):
-                one()  # dropped by skip=1
-                torch.cuda.synchronize()
                 t0 = time.perf_counter()
+                one()  # dropped by skip=1
                 one()
                 torch.cuda.synchronize()
                 traced_ms = 1e3 * (time.perf_counter() - t0)
             split = region_split(Path(d) / TRACE_FILE, step_regions(c, 2),
                                  skip=1)
+            busy_eager = device_busy(Path(d) / TRACE_FILE, traced_ms / 1e3)
         t_trace = time.perf_counter() - t_trace
         graphed_ms = time_ms(one, samples=5, reps=2, warmup=2)
         graphed_prof = profile_launches(one, calls=1)
@@ -2690,9 +2934,9 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
                    split[n]["launches"] for n in top if n in split),
                "launches_per_graphed_call":
                    graphed_prof["launches_per_call"],
-               "device_ms_eager": eager_device,
-               "device_ms_graphed": graphed_prof["device_ms_per_call"],
-               "busy_eager": eager_device / traced_ms,
+               "kernel_ms_eager": eager_device,
+               "kernel_ms_graphed": graphed_prof["kernel_ms_per_call"],
+               "busy_eager": busy_eager,
                "busy_graphed": graphed_prof["device_busy"],
                "d_step_device_ms": split["d_step"]["device_ms"],
                "g_step_device_ms": split["g_step"]["device_ms"],
@@ -2707,9 +2951,10 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
             f"eager step (the trace's), "
             f"{row['launches_per_graphed_call']:.0f} device activities "
             f"(kernels, copies, sets) traced per replay; "
-            f"{row['device_ms_eager']:.2f} / {row['device_ms_graphed']:.2f} "
-            f"ms of kernels; busy {row['busy_eager']:.3f} eager (traced "
-            f"step, {traced_ms:.1f} ms), {row['busy_graphed']:.3f} graphed; "
+            f"kernel time {row['kernel_ms_eager']:.2f} / "
+            f"{row['kernel_ms_graphed']:.2f} ms; busy (union of device "
+            f"intervals) {row['busy_eager']:.3f} eager (two traced steps, "
+            f"{traced_ms:.1f} ms), {row['busy_graphed']:.3f} graphed; "
             f"eager regions: d_step {row['d_step_device_ms']:.2f} ms "
             f"(r1_penalty {row['r1_device_ms']:.2f}), g_step "
             f"{row['g_step_device_ms']:.2f} ms of kernels; "
@@ -2735,7 +2980,6 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
     from music_synthesis_tpu_torch.train import stage1
     from music_synthesis_tpu_torch.train.flagship import (
         stage1_flagship_config, zoo_train_state)
-    from music_synthesis_tpu_torch.train.state import state_groups
 
     out = {}
     # Path 1: generate, the flagship pair (specgan_flux fp32, vocoder_istft
@@ -2829,8 +3073,7 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
             for _ in range(5):
                 st, m = stage1.train_step(cfg1, st, mel1)
                 metrics.append(m)
-        return metrics, [_outputs([g[k] for k in sorted(g)])
-                         for g in state_groups(st)]
+        return metrics, _state_tensors(st)
 
     (eager_a, sa), (eager_b, sb), (graphed, sg) = (five(False), five(False),
                                                    five(True))
@@ -3027,9 +3270,13 @@ def main() -> int:
               "single-process stage-2 step the ranks are held to")
         launches["dp_train"] = dp["dp_launches"]
         log(f"[main] kernel launches in the ranks' DP steps: "
-            f"{launches['dp_train']} (1 per rank per stage-2 step), and "
-            f"{launches['dp_single']} in this process's single-process step")
+            f"{launches['dp_train']} (1 per rank per stage-2 step), "
+            f"{dp['dp_graph_replays']} of them in replays of the NCCL ranks' "
+            f"graphed DP steps (1 per replay), and {launches['dp_single']} "
+            f"in this process's single-process step")
         check(launches["dp_train"] > 0, "the DP steps never launched the kernel")
+        check(dp["dp_graph_replays"] > 0,
+              "no replay of a graphed DP step launched the kernel")
 
         banner("phase 13: native IO, extract_features, eval_stage1, parity, "
             "average_ckpts, deploy, named regions (main path)")
@@ -3103,6 +3350,7 @@ def main() -> int:
                              "eval_run": evals["eval_run_launches"],
                              "eval_and_inference_clis": launches["eval_clis"],
                              "dp_train_step": launches["dp_train"],
+                             "dp_graph_replays": dp["dp_graph_replays"],
                              "dp_single_step": launches["dp_single"],
                              "extract_features": launches["extract_features"],
                              "eval_stage1": launches["eval_stage1"],

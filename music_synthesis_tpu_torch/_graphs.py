@@ -27,6 +27,18 @@ outputs. ``Programs`` keeps one such program per key and input shapes.
   calls: a replay adds the launches its capture recorded. The warm-up's
   eager launches and the capture build the program (as the reference's
   first call compiles its program) and are taken back out of the count.
+- A program may hold NCCL's collectives (a training step under an NCCL
+  group: ``parallel.mesh.graphable``). NCCL makes its communicator at the
+  group's first collective, on the host, which is outside any capture
+  when it falls in the eager warm-up; the capture runs with
+  ``capture_error_mode="thread_local"``, because NCCL's watchdog thread
+  queries its events while a capture runs, which the global mode would
+  count as a forbidden call that invalidates the capture. The ranks must
+  warm up, capture, replay and drop their programs in the same order
+  (``train.state.cached_step``), or the collectives of one rank pair with
+  another program's on another rank and hang; a group is left only after
+  its programs are dropped (``parallel.mesh.leave``). gloo's collectives
+  run on the host, and no graph can hold them.
 - ``disable_graphs()`` runs the entry points eagerly on the card too, as
   ``jax.disable_jit()`` does for the reference: to time the eager
   launches beside the graphs, and to compare the two.
@@ -130,6 +142,7 @@ class GraphedProgram:
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         mark = logmel_kernel.n_launches
+        # thread_local: other threads (NCCL's watchdog) may call CUDA.
         with torch.cuda.graph(graph, pool=self.pool,
                               capture_error_mode="thread_local"):
             self._outputs = self.fn(*self._inputs)

@@ -92,7 +92,10 @@ from music_synthesis_tpu_torch.ops.logmel import (
     logmel_kernel,
 )
 from music_synthesis_tpu_torch.train import stage1, stage2
-from music_synthesis_tpu_torch.utils.profiling import device_events
+from music_synthesis_tpu_torch.utils.profiling import (
+    device_busy,
+    device_events,
+)
 
 __all__ = ["DEFAULT_OUT", "PEAK_FLOPS", "ITERS", "RESULT_KEYS", "Env",
            "card_record", "per_call_s", "graphed_and_eager_s",
@@ -195,19 +198,22 @@ class Env:
             torch.cuda.synchronize(self.device)
 
 
-def _busy_share(env: Env, many: Callable, n: int) -> float:
-    """Share of one profiled ``n``-call run's wall time that the card
-    spent in kernels, copies and sets. Only the card's activity is traced
-    (tracing the host's operators too lengthens the host's side, and the
-    trace's processing, several times over); what is left still lengthens
-    the run a little, so this reads low."""
+def _busy_share(env: Env, many: Callable, n: int) -> tuple[float, float]:
+    """``(busy, kernel_ms)`` of one profiled ``n``-call run: the share of
+    its wall time that the card spent in kernels, copies and sets (the
+    union of their intervals, ``utils.profiling.device_busy``), and the
+    summed time of those activities per call (overlapping ones counted
+    each). Only the card's activity is traced (tracing the host's
+    operators too lengthens the host's side, and the trace's processing,
+    several times over); what is left still lengthens the run a little,
+    so the share reads low."""
     env.sync()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         float(many(n, env.generator(-1)))
         wall = time.perf_counter() - t0
     device_us = sum(e.self_device_time_total for e in device_events(prof))
-    return device_us / 1e6 / wall
+    return device_busy(prof, wall), device_us / 1e3 / n
 
 
 def per_call_s(label: str, env: Env, many: Callable, n_iters: int,
@@ -259,9 +265,10 @@ def per_call_s(label: str, env: Env, many: Callable, n_iters: int,
     if cuda:
         calls = max(1, min(n_iters, int(_BUSY_S / best)))
         t0 = time.perf_counter()
-        busy = _busy_share(env, many, calls)
-        log(f"[{label}] device busy share {busy:.3f} (profiled run of "
-            f"{calls} calls, {time.perf_counter() - t0:.2f} s)")
+        busy, kernel_ms = _busy_share(env, many, calls)
+        log(f"[{label}] device busy share {busy:.3f}, kernel time "
+            f"{kernel_ms:.4f} ms per call (profiled run of {calls} calls, "
+            f"{time.perf_counter() - t0:.2f} s)")
     return best
 
 

@@ -8,6 +8,14 @@ from the state's generator, which is the same on every rank, and keeps its
 rows; gradients and metrics are averaged over the ranks. So with the same
 batch the step equals the single-process step on the concatenated batch,
 as the reference's jit-sharded step equals its single-device step.
+
+On a card, over an NCCL group, each rank replays the step's CUDA graph
+(``stage2.GraphedStep``, ``stage1.GraphedStep``, the reference's
+``jax.jit(..., donate_argnums=0)``): the gradient all-reduces, the
+losses' cross-rank sums and the metrics' means are NCCL kernels captured
+in it; the draws stay eager. Over gloo, whose collectives run on the host
+and cannot be captured, and on the CPU, the step runs eagerly. Every rank
+must call the same steps in the same order (``train.state.cached_step``).
 """
 
 from __future__ import annotations
@@ -38,16 +46,14 @@ def make_dp_step(step_fn: Callable, cfg: PipelineConfig, group=None,
 
 def make_dp_stage2_step(cfg: PipelineConfig, group=None) -> Callable:
     """``(state, wav [B/N, L], noise=None, precision="fast") -> (state,
-    metrics)``; ``noise`` is this rank's rows of the global draws. Eager,
-    also on a card, as ``make_dp_stage1_step`` says."""
+    metrics)``; ``noise`` is this rank's rows of the global draws. One
+    CUDA graph per rank over NCCL, eager over gloo (the module's
+    docstring)."""
     return make_dp_step(stage2.train_step, cfg, group)
 
 
 def make_dp_stage1_step(cfg: PipelineConfig, group=None) -> Callable:
     """``(state, mel [B/N, T, M], z=None, noise=None) -> (state,
-    metrics)``. Eager, also on a card: the single-process steps' CUDA
-    graphs (``stage1.GraphedStep``, ``stage2.GraphedStep``) do not apply,
-    because the gradient all-reduces go through ``torch.distributed``
-    (gloo's run on the host and cannot be captured; NCCL graphs are not
-    done yet)."""
+    metrics)``. One CUDA graph per rank over NCCL, eager over gloo (the
+    module's docstring)."""
     return make_dp_step(stage1.train_step, cfg, group)

@@ -33,10 +33,12 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.distributed as dist
 
+from music_synthesis_tpu_torch.train.state import drop_graphed_steps
+
 __all__ = ["world_size", "rank", "backend_for", "init_process_group",
-           "shard_batch", "shard_chunk", "replicate_state",
-           "all_reduce_mean", "AllReduce", "device_list", "free_port",
-           "launch"]
+           "leave", "graphable", "group_key", "shard_batch", "shard_chunk",
+           "replicate_state", "all_reduce_mean", "AllReduce", "device_list",
+           "free_port", "launch"]
 
 # How long a collective may wait for the other ranks before it raises.
 TIMEOUT = timedelta(seconds=600)
@@ -74,6 +76,31 @@ def init_process_group(rank_: int, world_size_: int, port: int,
                             rank=rank_, world_size=world_size_,
                             timeout=TIMEOUT)
     return dist.group.WORLD
+
+
+def leave() -> None:
+    """Destroys the default group, after dropping the process's graphed
+    training steps: a CUDA graph that captured NCCL's collectives holds
+    resources of the group's communicator, so it goes first."""
+    drop_graphed_steps()
+    dist.destroy_process_group()
+
+
+def graphable(group) -> bool:
+    """Whether a training step under ``group`` replays a CUDA graph on a
+    card: without a group, or over NCCL, whose collectives are kernels on
+    the card that a graph captures. gloo's collectives run on the host and
+    cannot be captured, so a step over gloo runs eagerly, by design."""
+    return group is None or dist.get_backend(group) == "nccl"
+
+
+def group_key(group, dp: str):
+    """What a cache of graphed steps keys on for ``group``: the group, its
+    ranks, its backend and the step's ``dp`` mode (None without a group)."""
+    if group is None:
+        return None
+    return (group, tuple(dist.get_process_group_ranks(group)),
+            dist.get_backend(group), dp)
 
 
 def _rows(n: int, group) -> slice:
@@ -208,7 +235,7 @@ def _rank_main(rank_: int, world: int, port: int, backend: str,
         result = fn(*args)
         torch.save(result, Path(out_dir) / f"{rank_}.pt")
     finally:
-        dist.destroy_process_group()
+        leave()
 
 
 def launch(fn: Callable, world: int, args: tuple = (), *,

@@ -10,6 +10,12 @@ losses are averaged over the ranks (``lax.pmean``), ``g_rms_ratio`` is the
 mean of the shards' ratios, and the STFT, phase and flux terms are the
 global batch's (``losses/``, ``train/stage1.py``). The fused log-mel
 kernel runs per rank, on the rank's rows.
+
+On a card, over an NCCL group, each rank replays the step's CUDA graph
+(the reference's ``jax.jit(shard_map(...), donate_argnums=0)``), its
+collectives captured; the draws, the seeding of the rank's generator
+(a host read) among them, stay eager. Over gloo, and on the CPU, the step
+runs eagerly (``parallel/dp.py`` says why).
 """
 
 from __future__ import annotations
@@ -26,18 +32,14 @@ __all__ = ["make_shardmap_stage2_step", "make_shardmap_stage1_step",
 
 def make_shardmap_stage2_step(cfg: PipelineConfig, group=None) -> Callable:
     """``(state, wav [B/N, L], noise=None, precision="fast") -> (state,
-    metrics)``; ``noise`` replaces this rank's own draws. Eager, also on
-    a card, as ``make_shardmap_stage1_step`` says."""
+    metrics)``; ``noise`` replaces this rank's own draws. One CUDA graph
+    per rank over NCCL, eager over gloo (the module's docstring)."""
     return make_dp_step(stage2.train_step, cfg, group, dp="shard_map")
 
 
 def make_shardmap_stage1_step(cfg: PipelineConfig, group=None) -> Callable:
-    """Stage-1 twin: ``(state, mel [B/N, T, M], z=None, noise=None)``.
-    Eager, also on a card: the single-process steps' CUDA graphs
-    (``stage1.GraphedStep``, ``stage2.GraphedStep``) do not apply,
-    because the gradient all-reduces go through ``torch.distributed``
-    (gloo's run on the host and cannot be captured; NCCL graphs are not
-    done yet)."""
+    """Stage-1 twin: ``(state, mel [B/N, T, M], z=None, noise=None)``,
+    graphed or eager as the stage-2 step."""
     return make_dp_step(stage1.train_step, cfg, group, dp="shard_map")
 
 
@@ -45,5 +47,7 @@ def make_shardmap_stage2_many(cfg: PipelineConfig, group=None) -> Callable:
     """``(state, wavs [K, B/N, L]) -> (state, last step's metrics)``: K
     chained steps on this rank's rows of a step chunk
     (``parallel.mesh.shard_chunk``), the same as K steps of
-    ``make_shardmap_stage2_step``."""
+    ``make_shardmap_stage2_step``: over NCCL K replays of its graph back
+    to back and one read of the metrics (the reference's K-step
+    ``lax.scan``)."""
     return make_dp_step(stage2.train_step_many, cfg, group, dp="shard_map")

@@ -100,7 +100,7 @@ def ranks(ap: argparse.ArgumentParser, args: argparse.Namespace):
         yield dev, dist.group.WORLD
     finally:
         if joined:
-            dist.destroy_process_group()
+            mesh.leave()
 
 
 def is_main() -> bool:

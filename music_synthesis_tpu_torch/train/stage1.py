@@ -21,6 +21,8 @@ rows (``dp="jit"``) or drawn per rank (``"shard_map"``, latents and noise
 from the rank's own generator, as the reference folds the axis index into
 both keys). The flux profiles are averaged over the ranks before the L1
 (``parallel.mesh.AllReduce``), so the flux term is the global batch's.
+On a card the step replays its CUDA graph (``GraphedStep``) in a single
+process and under an NCCL group; under a gloo group it runs eagerly.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 from torch.profiler import record_function
 
@@ -48,6 +51,8 @@ from music_synthesis_tpu_torch.models.specgan import (
 from music_synthesis_tpu_torch.parallel.mesh import (
     AllReduce,
     all_reduce_mean,
+    graphable,
+    group_key,
     world_size,
 )
 from music_synthesis_tpu_torch.train.stage2 import (
@@ -296,27 +301,37 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
 
 def _update_in_place(cfg: PipelineConfig, state: GANState,
                      real: torch.Tensor, z: torch.Tensor,
-                     scalars: torch.Tensor, *noise: torch.Tensor) -> dict:
+                     scalars: torch.Tensor, *noise: torch.Tensor, group=None,
+                     dp: str = "shard_map") -> dict:
     """``_update`` on the 0-d tensors of ``scalars`` [7], its new values
     written back into ``state``'s tensors; returns the metrics."""
-    *new, metrics = _update(cfg, state, real, z, noise, scalars.unbind())
+    *new, metrics = _update(cfg, state, real, z, noise, scalars.unbind(),
+                            group, dp)
     assign(state, *new)
     return metrics
 
 
 class GraphedStep(InPlaceStep):
-    """The single-process step in place (``train.state.InPlaceStep``): on
-    a CUDA device one CUDA graph, on the CPU the same arithmetic run
-    eagerly. The draws (latents, instance noise) are made eagerly from the
-    state's generator, in the functional step's order, and the per-step
-    scalars (the noise sigma, each Adam's learning rate and bias
-    corrections) are filled into 0-d fp32 tensors before each call, so a
-    call computes what ``_step`` computes, draw for draw.
+    """The step in place (``train.state.InPlaceStep``): on a CUDA device
+    one CUDA graph, on the CPU the same arithmetic run eagerly. The draws
+    (latents, instance noise) are made eagerly from the state's generator,
+    in the functional step's order, and the per-step scalars (the noise
+    sigma, each Adam's learning rate and bias corrections) are filled into
+    0-d fp32 tensors before each call, so a call computes what ``_step``
+    computes, draw for draw. ``group`` and ``dp``: the data-parallel step,
+    as ``stage2.GraphedStep`` takes them (its collectives in the graph,
+    NCCL's only; its draws eager).
     """
 
-    def __init__(self, cfg: PipelineConfig, device: torch.device | str):
-        super().__init__(functools.partial(_update_in_place, cfg), device)
-        self.cfg = cfg
+    def __init__(self, cfg: PipelineConfig, device: torch.device | str,
+                 group=None, dp: str = "shard_map"):
+        device = torch.device(device)
+        if device.type == "cuda" and not graphable(group):
+            raise ValueError("a CUDA graph cannot capture the collectives "
+                             f"of a {dist.get_backend(group)} group")
+        super().__init__(functools.partial(_update_in_place, cfg,
+                                           group=group, dp=dp), device)
+        self.cfg, self.group, self.dp = cfg, group, dp
 
     def __call__(self, state: GANState, real_mel, z=None, noise=None
                  ) -> tuple[GANState, dict[str, torch.Tensor]]:
@@ -325,24 +340,27 @@ class GraphedStep(InPlaceStep):
         the card: read them before the next call)."""
         real = torch.as_tensor(real_mel, dtype=torch.float32)
         rng, z, noise = _draws(self.cfg, state, self.device, real.shape, z,
-                               noise)
+                               noise, self.group, self.dp)
         scalars = torch.tensor(_scalars(self.cfg, state), dtype=torch.float32)
         metrics = self.run(state, real, z, scalars, *noise)
         return self.advanced(state, rng, state.d_opt.count + 1), metrics
 
 
 #: The graphed steps of this process, by (config, batch shape, device,
-#: ``_graphs.flags()``); the oldest beyond ``cached_step``'s limit is
-#: dropped.
+#: ``_graphs.flags()``, ``parallel.mesh.group_key``); the oldest beyond
+#: ``cached_step``'s limit is dropped.
 _STEPS: dict[tuple, GraphedStep] = {}
 
 
-def graphed_step(cfg: PipelineConfig, shape, device: torch.device
-                 ) -> GraphedStep:
+def graphed_step(cfg: PipelineConfig, shape, device: torch.device,
+                 group=None, dp: str = "shard_map") -> GraphedStep:
     """The process's ``GraphedStep`` of ``cfg`` for batches of ``shape``
-    on ``device`` under the current ``_graphs.flags()``."""
-    return cached_step(_STEPS, (cfg, tuple(shape), device, flags()),
-                       lambda: GraphedStep(cfg, device))
+    on ``device`` under the current ``_graphs.flags()``, and under
+    ``group`` in mode ``dp`` (every rank of the group must make the same
+    calls in the same order: ``state.cached_step``)."""
+    return cached_step(_STEPS, (cfg, tuple(shape), device, flags(),
+                                group_key(group, dp)),
+                       lambda: GraphedStep(cfg, device, group, dp))
 
 
 def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
@@ -358,16 +376,16 @@ def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
     ``z``, ``noise``) as its rows of the global batch; ``dp`` says which
     reference step it follows (``train/stage2.py``'s docstring).
 
-    On a card a single-process step (no ``group``) replays the CUDA graph
-    of ``graphed_step``: the returned state's tensors are that graph's
-    buffers, and ``state`` is donated to it (``GraphedStep``). On the CPU,
-    and under data parallelism, the step runs eagerly and returns new
-    tensors.
+    On a card the step replays the CUDA graph of ``graphed_step``, in a
+    single process and under an NCCL ``group`` (its collectives captured):
+    the returned state's tensors are that graph's buffers, and ``state``
+    is donated to it (``GraphedStep``). On the CPU, and under a gloo
+    group, the step runs eagerly and returns new tensors.
     """
     dev = _device(state)
-    if group is None and enabled(dev):
+    if enabled(dev) and graphable(group):
         real = torch.as_tensor(real_mel, dtype=torch.float32)
-        new_state, metrics = graphed_step(cfg, real.shape, dev)(
+        new_state, metrics = graphed_step(cfg, real.shape, dev, group, dp)(
             state, real, z, noise)
     else:
         new_state, metrics = _step(cfg, state, real_mel, z, noise, group, dp)

@@ -7,14 +7,16 @@ terms, optional frame-energy and phase terms), then the EMA of G. It
 returns the new ``GANState`` and the metrics of the JAX step, under the
 same keys, as Python floats.
 
-On a card the single-process step replays one CUDA graph per config and
-batch shape (``GraphedStep``, the reference's jitted step, to which the
-state is donated). Both sides of the warmup gate are one program: the
-gate, the noise sigma and Adam's scalars are 0-d tensors filled before
-each replay. ``train_step_many`` replays the graph K times and reads the
-metrics once. On the CPU, and under data parallelism, the same arithmetic
-runs eagerly and the old state is left as it was. The modules are fixed
-per config and called with the state's parameters
+On a card the step replays one CUDA graph per config and batch shape
+(``GraphedStep``, the reference's jitted step, to which the state is
+donated), in a single process and on the ranks of an NCCL group, whose
+collectives the graph captures. Both sides of the warmup gate are one
+program: the gate, the noise sigma and Adam's scalars are 0-d tensors
+filled before each replay. ``train_step_many`` replays the graph K times
+and reads the metrics once. On the CPU, and on the ranks of a gloo group
+(whose collectives run on the host, where no graph can capture them), the
+same arithmetic runs eagerly and the old state is left as it was. The
+modules are fixed per config and called with the state's parameters
 (``torch.func.functional_call``), so neither player's ``.grad`` is ever
 written: each gradient is ``torch.autograd.grad`` of one loss with respect
 to one player's parameters. The G forward of the D step and the G step is
@@ -56,6 +58,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
@@ -433,33 +436,46 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
 
 def _update_in_place(cfg: PipelineConfig, precision: str, state: GANState,
                      wav: torch.Tensor, scalars: torch.Tensor,
-                     *noise: torch.Tensor) -> dict:
+                     *noise: torch.Tensor, group=None,
+                     dp: str = "shard_map") -> dict:
     """``_update`` on the 0-d tensors of ``scalars`` [8], its new values
     written back into ``state``'s tensors; returns the metrics."""
     *new, metrics = _update(cfg, state, wav, noise, scalars.unbind(),
-                            precision)
+                            precision, group, dp)
     assign(state, *new)
     return metrics
 
 
 class GraphedStep(InPlaceStep):
-    """The single-process step in place (``train.state.InPlaceStep``), for
-    one config, batch shape and log-mel ``precision``: on a CUDA device
-    one CUDA graph (the reference's ``jax.jit(train_step,
-    donate_argnums=1)``), R1's double backward and the log-mel kernel's
-    launch inside it; on the CPU the same arithmetic run eagerly. The
-    instance noise is drawn eagerly from the state's generator, in the
-    functional step's order, and the per-step scalars (the noise sigma,
-    the warmup gate, each Adam's learning rate and bias corrections) are
-    filled into 0-d fp32 tensors before each call, so a call computes what
-    ``_step`` computes, draw for draw, on both sides of the gate.
+    """The step in place (``train.state.InPlaceStep``), for one config,
+    batch shape and log-mel ``precision``: on a CUDA device one CUDA graph
+    (the reference's ``jax.jit(train_step, donate_argnums=1)``), R1's
+    double backward and the log-mel kernel's launch inside it; on the CPU
+    the same arithmetic run eagerly. The instance noise is drawn eagerly
+    from the state's generator, in the functional step's order, and the
+    per-step scalars (the noise sigma, the warmup gate, each Adam's
+    learning rate and bias corrections) are filled into 0-d fp32 tensors
+    before each call, so a call computes what ``_step`` computes, draw for
+    draw, on both sides of the gate.
+
+    ``group`` and ``dp``: the data-parallel step (the reference's
+    ``make_dp_stage2_step`` / ``make_shardmap_stage2_step`` programs). Its
+    draws, the shard_map seeding's host read among them, stay eager; the
+    gradient all-reduces, the losses' cross-rank sums and the metrics'
+    means are in the graph, which NCCL's collectives allow and gloo's,
+    which run on the host, do not (``parallel.mesh.graphable``): a gloo
+    group on a card is refused here. A capture that fails raises.
     """
 
     def __init__(self, cfg: PipelineConfig, device: torch.device | str,
-                 precision: str = "fast"):
-        super().__init__(functools.partial(_update_in_place, cfg, precision),
-                         device)
-        self.cfg = cfg
+                 precision: str = "fast", group=None, dp: str = "shard_map"):
+        device = torch.device(device)
+        if device.type == "cuda" and not mesh.graphable(group):
+            raise ValueError("a CUDA graph cannot capture the collectives "
+                             f"of a {dist.get_backend(group)} group")
+        super().__init__(functools.partial(_update_in_place, cfg, precision,
+                                           group=group, dp=dp), device)
+        self.cfg, self.group, self.dp = cfg, group, dp
 
     def __call__(self, state: GANState, wav, noise=None
                  ) -> tuple[GANState, dict[str, torch.Tensor]]:
@@ -467,7 +483,8 @@ class GraphedStep(InPlaceStep):
         ``train_step``); the metrics stay tensors (the graph's buffers on
         the card: read them before the next call)."""
         wav = torch.as_tensor(wav, dtype=torch.float32)
-        rng, noise = _draws(self.cfg, state, self.device, wav.shape, noise)
+        rng, noise = _draws(self.cfg, state, self.device, wav.shape, noise,
+                            self.group, self.dp)
         scalars = torch.tensor(_scalars(self.cfg, state), dtype=torch.float32)
         metrics = self.run(state, wav, scalars, *noise)
         d_count = state.d_opt.count + _gate_open(self.cfg, state.step)
@@ -475,29 +492,34 @@ class GraphedStep(InPlaceStep):
 
 
 #: The graphed steps of this process, by (config, batch shape, device,
-#: log-mel precision, ``_graphs.flags()``); the oldest beyond
-#: ``cached_step``'s limit is dropped.
+#: log-mel precision, ``_graphs.flags()``, ``parallel.mesh.group_key``);
+#: the oldest beyond ``cached_step``'s limit is dropped.
 _STEPS: dict[tuple, GraphedStep] = {}
 
 
 def graphed_step(cfg: PipelineConfig, shape, device: torch.device,
-                 precision: str = "fast") -> GraphedStep:
+                 precision: str = "fast", group=None,
+                 dp: str = "shard_map") -> GraphedStep:
     """The process's ``GraphedStep`` of ``cfg`` for batches of ``shape``
-    on ``device`` under the current ``_graphs.flags()``."""
+    on ``device`` under the current ``_graphs.flags()``, and under
+    ``group`` in mode ``dp`` (every rank of the group must make the same
+    calls in the same order: ``state.cached_step``)."""
     return cached_step(_STEPS, (cfg, tuple(shape), device, precision,
-                                flags()),
-                       lambda: GraphedStep(cfg, device, precision))
+                                flags(), mesh.group_key(group, dp)),
+                       lambda: GraphedStep(cfg, device, precision, group, dp))
 
 
 def _run_step(cfg: PipelineConfig, state: GANState, wav, noise=None,
               precision: str = "fast", group=None, dp: str = "shard_map"):
-    """One step with its metrics left on the device: on a card a
-    single-process step replays ``graphed_step``'s graph (``state`` is
-    donated to it); otherwise it runs eagerly (``_step``)."""
+    """One step with its metrics left on the device: on a card, in a
+    single process or under an NCCL group, it replays ``graphed_step``'s
+    graph (``state`` is donated to it); otherwise (the CPU, a gloo group)
+    it runs eagerly (``_step``)."""
     dev = _device(state)
-    if group is None and enabled(dev):
+    if enabled(dev) and mesh.graphable(group):
         wav = torch.as_tensor(wav, dtype=torch.float32)
-        return graphed_step(cfg, wav.shape, dev, precision)(state, wav, noise)
+        return graphed_step(cfg, wav.shape, dev, precision, group, dp)(
+            state, wav, noise)
     return _step(cfg, state, wav, noise, precision, group, dp)
 
 
@@ -520,11 +542,11 @@ def train_step(cfg: PipelineConfig, state: GANState, wav,
     ``wav`` (and ``noise``) as its rows of the global batch; ``dp`` says
     which reference step it follows (the module's docstring).
 
-    On a card a single-process step (no ``group``) replays the CUDA graph
-    of ``graphed_step``: the returned state's tensors are that graph's
-    buffers, and ``state`` is donated to it (``GraphedStep``). On the CPU,
-    and under data parallelism, the step runs eagerly and returns new
-    tensors.
+    On a card the step replays the CUDA graph of ``graphed_step``, in a
+    single process and under an NCCL ``group`` (its collectives captured):
+    the returned state's tensors are that graph's buffers, and ``state``
+    is donated to it (``GraphedStep``). On the CPU, and under a gloo
+    group, the step runs eagerly and returns new tensors.
     """
     new_state, metrics = _run_step(cfg, state, wav, noise, precision, group,
                                    dp)
@@ -537,9 +559,10 @@ def train_step_many(cfg: PipelineConfig, state: GANState, wavs, noise=None,
     """``len(wavs)`` chained steps over ``wavs [K, B, L]``, the same as K
     ``train_step`` calls; returns the last step's metrics (the reference's
     ``lax.scan`` in one dispatch). ``noise``: ``[K, 3, B, L]``, each
-    step's three instance-noise normals, in place of draws. On a card a
-    single-process call replays the step's graph K times back to back and
-    reads the metrics once, after the last."""
+    step's three instance-noise normals, in place of draws. On a card, in
+    a single process and under an NCCL ``group`` (the reference's
+    ``shard_map`` K-step scan), a call replays the step's graph K times
+    back to back and reads the metrics once, after the last."""
     wavs = torch.as_tensor(wavs, dtype=torch.float32, device=_device(state))
     if len(wavs) == 0:
         raise ValueError("train_step_many needs at least one batch")

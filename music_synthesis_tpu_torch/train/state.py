@@ -34,7 +34,7 @@ from music_synthesis_tpu_torch.config import TrainConfig
 
 __all__ = ["AdamState", "GANState", "Adam", "make_optimizer", "global_norm",
            "state_groups", "assign", "next_state", "InPlaceStep",
-           "cached_step"]
+           "cached_step", "drop_graphed_steps"]
 
 
 @dataclasses.dataclass
@@ -261,11 +261,33 @@ class InPlaceStep:
             d_opt=AdamState(d_count, b.d_opt.mu, b.d_opt.nu))
 
 
+#: Every cache of steps that ``cached_step`` has filled in this process.
+_CACHES: list[dict] = []
+
+
 def cached_step(steps: dict, key, make, limit: int = 4):
     """``steps[key]``, made by ``make()`` if missing; the oldest entries
-    beyond ``limit`` are dropped (with their graphs and pools)."""
+    beyond ``limit`` are dropped (with their graphs and pools).
+
+    A data-parallel step's graph holds its group's collectives, so the
+    ranks must build (warm up and capture), replay and drop their graphs
+    in the same order: each rank calls the same steps with the same keys
+    in the same order, or the collectives of one rank's warm-up or replay
+    pair with another's of another program and hang."""
+    if not any(c is steps for c in _CACHES):
+        _CACHES.append(steps)
     step = steps.pop(key, None) or make()
     steps[key] = step
     while len(steps) > limit:
         del steps[next(iter(steps))]
     return step
+
+
+def drop_graphed_steps() -> None:
+    """Drops every step that ``cached_step`` holds in this process, with
+    its graph and pool (``parallel.mesh.leave`` calls it before the group
+    is destroyed), after the card has run every replay it was given."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for steps in _CACHES:
+        steps.clear()

@@ -7,7 +7,9 @@ regions under the JAX package's ``jax.named_scope`` names (``frontend``,
 ``r1_penalty``, ``d_step``, ``generator_fwd_g``, ``disc_fake_g``,
 ``disc_real_g``, ``losses``, ``g_step``, ``ema``), so a trace splits a step
 by phase; ``step_regions`` names the regions a config's step opens and
-``region_split`` reads a trace into time per region. ``time_fn`` times a
+``region_split`` reads a trace into time per region. ``device_busy`` is
+the device's busy share of a window: the union of its activity intervals
+(overlapping kernels counted once) over the window. ``time_fn`` times a
 call with the device synchronised.
 """
 
@@ -16,6 +18,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import tempfile
 import time
 from pathlib import Path
 from typing import Callable
@@ -25,8 +28,9 @@ from torch.profiler import ProfilerActivity, profile
 
 from music_synthesis_tpu_torch._graphs import disable_graphs
 
-__all__ = ["trace", "device_events", "time_fn", "step_regions",
-           "region_split", "REGIONS", "OUTSIDE", "TRACE_FILE"]
+__all__ = ["trace", "device_events", "device_busy", "time_fn",
+           "step_regions", "region_split", "REGIONS", "OUTSIDE",
+           "TRACE_FILE"]
 
 #: Every region name either step can open (the JAX steps' scope names).
 REGIONS = ("frontend", "generator_fwd", "d_step", "disc_both", "disc_real",
@@ -106,6 +110,46 @@ def step_regions(cfg, stage: int) -> list[str]:
 
 
 _DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _trace_events(trace_file: str | Path) -> list[dict]:
+    data = json.loads(Path(trace_file).read_text())
+    return data["traceEvents"] if isinstance(data, dict) else data
+
+
+def device_busy(source, window_s: float) -> float:
+    """The device's busy share of a window of ``window_s`` seconds: the
+    union of the intervals of its activities (kernels, copies, sets; the
+    Chrome trace's ``kernel``, ``gpu_memcpy`` and ``gpu_memset``) in
+    ``source``, a ``torch.profiler.profile`` that has ended or a Chrome
+    trace file, divided by the window. Activities that overlap (kernels on
+    other streams, or launched with programmatic dependent launch) count
+    once, so the share is at most 1: a window shorter than the span from
+    the first activity's start to the last one's end (the host's clock
+    against the trace's) is taken as that span. 0 when the source holds no
+    device activity."""
+    if isinstance(source, (str, Path)):
+        events = _trace_events(source)
+    else:
+        with tempfile.TemporaryDirectory(prefix="busy_") as tmp:
+            path = Path(tmp) / TRACE_FILE
+            source.export_chrome_trace(str(path))
+            events = _trace_events(path)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("cat") in _DEVICE_CATS)
+    if not spans:
+        return 0.0
+    busy, (start, end) = 0.0, spans[0]
+    for s, e in spans[1:]:
+        if s > end:
+            busy += end - start
+            start, end = s, e
+        else:
+            end = max(end, e)
+    busy += end - start
+    return busy / max(window_s * 1e6, end - spans[0][0])
+
+
 #: ``region_split``'s row for device work launched outside every region.
 OUTSIDE = "(outside)"
 
@@ -126,8 +170,7 @@ def region_split(trace_file: str | Path, names: list[str], calls: int = 1,
     begin where ``names[0]`` does) and everything before them: in a
     process that ran the profiler before, a trace's first launches can come
     without their host records."""
-    data = json.loads(Path(trace_file).read_text())
-    events = data["traceEvents"] if isinstance(data, dict) else data
+    events = _trace_events(trace_file)
     spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
              if e.get("cat") == "user_annotation" and e.get("name") in names]
     if skip:

@@ -16,10 +16,12 @@ entry points at full width with the committed zoo weights:
 - one stage-1 training step of the composer flagship at [16, 128, 128]
   (``train.stage1.train_step``; ``train.flagship.stage1_flagship_config``).
 
-For each it prints the wall time per call, the summed kernel time and the
-kernel launches per call, the device-busy share of the window (summed
-kernel time over wall time; overlapping kernels would count twice, and the
-port runs one stream), and the kernels that took the most device time.
+For each it prints the wall time per call, the kernel time (the summed
+time of the device's kernels, copies and sets, overlapping ones counted
+each) and the kernel launches per call, the device-busy share of the
+window (the union of those activities' intervals over the wall time,
+``utils.profiling.device_busy``: overlapping kernels count once), and the
+kernels that took the most device time.
 For each training step it also prints the split by named region (the JAX
 step's ``jax.named_scope`` names, ``utils/profiling.py``): per region the
 host ms, the device ms and kernel launches of the work launched inside it,
@@ -58,15 +60,16 @@ def profile(name: str, fn, steps: int, top: int = 12) -> None:
             fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    from music_synthesis_tpu_torch.utils.profiling import device_events
+    from music_synthesis_tpu_torch.utils.profiling import (device_busy,
+                                                           device_events)
 
     events = device_events(prof)
     device_us = sum(e.self_device_time_total for e in events)
     launches = sum(e.count for e in events) // steps
     print(f"[{name}] {steps} calls, wall {wall / steps * 1e3:.3f} ms per call, "
-          f"device {device_us / steps / 1e3:.3f} ms and {launches} kernel "
-          f"launches per call, device busy {device_us / 1e6 / wall:.3f} of "
-          f"the window")
+          f"kernel time {device_us / steps / 1e3:.3f} ms and {launches} "
+          f"kernel launches per call, device busy "
+          f"{device_busy(prof, wall):.3f} of the window")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[{name}]   {e.self_device_time_total / steps / 1e3:9.4f} ms/call "
               f"x{e.count // steps:<4d} {e.key[:90]}")

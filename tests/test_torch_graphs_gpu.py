@@ -20,8 +20,12 @@ after a few steps D's Adam moments can differ at rounding level
 bf16, zoo G, seeded D, ``flagship_config``: R1, instance noise, the
 MSD's dense block-diagonal convolutions), one step on each side of the
 warmup gate: graphed against eager within the same tolerances, one
-log-mel launch per replay. A second service's audio against the first's:
-2e-3 (``FP32_TOL``).
+log-mel launch per replay. The same flagship step under a one-rank NCCL
+group in this process (a real ``ProcessGroupNCCL``, whose collectives the
+step's graph captures), both ``dp`` modes, graphed against eager within
+the same tolerances. Sequence-sharded vocoding over ``[cuda, cuda]``, one
+graph per shard, against its eager run within the card's own eager gap.
+A second service's audio against the first's: 2e-3 (``FP32_TOL``).
 """
 
 import contextlib
@@ -246,6 +250,80 @@ def test_stage2_flagship_graphed_step_matches_eager(cuda):
             kind = "grad_norm" if k.endswith("_norm") else "loss"
             tol = max(STAGE1_TOL[kind] * abs(e[k]), abs(a[k] - e[k]))
             assert abs(g[k] - e[k]) <= tol, (k, g[k], e[k])
+
+
+@pytest.fixture
+def nccl_group(cuda):
+    """A one-rank NCCL group in this process, left (``mesh.leave``, which
+    drops the graphs that hold its collectives first) after the test."""
+    from music_synthesis_tpu_torch.parallel import mesh
+
+    mesh.init_process_group(0, 1, mesh.free_port(), "nccl",
+                            torch.device("cuda", torch.cuda.current_device()))
+    try:
+        yield torch.distributed.group.WORLD
+    finally:
+        mesh.leave()
+
+
+@pytest.mark.parametrize("dp", ["jit", "shard_map"])
+def test_stage2_flagship_dp_step_at_one_nccl_rank_graphed_matches_eager(
+        nccl_group, cuda, dp):
+    from music_synthesis_tpu_torch import zoo
+    from music_synthesis_tpu_torch.parallel import mesh
+    from music_synthesis_tpu_torch.train.flagship import (flagship_config,
+                                                          zoo_train_state)
+
+    assert mesh.graphable(nccl_group)
+    entry = zoo.load_pretrained("vocoder_istft")
+    cfg = flagship_config(entry)
+    t = cfg.train
+    state0 = zoo_train_state(cfg, entry, cuda, seed=0)
+    wav = (0.5 * torch.tanh(torch.randn(
+        (t.batch_size, t.segment_length),
+        generator=torch.Generator().manual_seed(5)))).to(cuda)
+    runs = []
+    for graphs in (False, False, True):
+        st, out = state0, []
+        with (contextlib.nullcontext() if graphs
+              else _graphs.disable_graphs()):
+            for step in (0, t.g_warmup_steps):  # both sides of the gate
+                before = logmel_kernel.n_launches
+                st, m = stage2.train_step(
+                    cfg, dataclasses.replace(st, step=step), wav,
+                    group=nccl_group, dp=dp)
+                assert logmel_kernel.n_launches == before + 1
+                out.append(m)
+        runs.append(([g[k].clone() for g in state_groups(st)
+                      for k in sorted(g)], out))
+    program = stage2.graphed_step(cfg, wav.shape, wav.device,
+                                  group=nccl_group, dp=dp).program
+    assert program.graph is not None and program.launches_per_replay == 1
+    (eager, m_eager), (again, m_again), (graphed, m_graphed) = runs
+    for e, a, g in zip(eager, again, graphed):
+        tol = max(STATE_RTOL * float(e.abs().max()),
+                  float((a - e).abs().max()))
+        assert float((g - e).abs().max()) <= tol
+    for e, a, g in zip(m_eager, m_again, m_graphed):
+        for k in e:
+            if k == "d_update_norm" and e[k] == 0:  # inside the gate
+                assert g[k] == 0
+                continue
+            kind = "grad_norm" if k.endswith("_norm") else "loss"
+            tol = max(STAGE1_TOL[kind] * abs(e[k]), abs(a[k] - e[k]))
+            assert abs(g[k] - e[k]) <= tol, (k, g[k], e[k])
+
+
+def test_seqshard_graphed_matches_eager(pair, cuda):
+    from music_synthesis_tpu_torch.parallel.seqshard import (
+        make_seqshard_vocode)
+
+    _, voc = pair
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (2, 64, CFG.vocoder.n_mels)).astype(np.float32)).to(cuda)
+    fn = make_seqshard_vocode(voc, [cuda, cuda])
+    _graphed_within_eager_gap(lambda: fn(mel))
+    assert len(fn.programs[cuda].programs) == 2  # one per shard
 
 
 def test_service_replays_after_a_second_service_captures(cuda):

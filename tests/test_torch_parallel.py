@@ -181,13 +181,14 @@ def _port_single(stage, cfg, st0, batch, draws_list):
     return out
 
 
-@pytest.fixture(scope="module")
-def cases(tmp_path_factory):
-    """Every JAX reference, the port's single-process references, and the
-    ranks' results of one launched group."""
-    tmp = tmp_path_factory.mktemp("dp")
+def jax_dp_runs(tmp):
+    """Both stages' JAX DP runs of every mode from the warmed JAX states
+    (saved for the ranks as ``tmp/st{stage}.pt``): per ``(stage, dp)`` the
+    JAX steps ``[(numpy state, metrics, draws)]`` (``jax``), each rank's
+    ``(batch, z, noise)`` per step (``per_rank``), the global draws of the
+    single-process step (``single_draws``), the port's config, the numpy
+    start state, the global batch and the saved state's path."""
     mesh2 = _mesh()
-    out, jobs = {}, []
 
     # Stage 2.
     jcfg2, cfg2 = ref.configs()
@@ -225,6 +226,7 @@ def cases(tmp_path_factory):
                            lambda st: _jax_stage1_draws_per_device(
                                st.rng, jcfg1, (B1 // N, 32, 32))),
     }
+    runs = {}
     for (stage, dp), (jcfg, cfg, st, st_np, batch, draws) in specs.items():
         jax_steps = _run_jax(steps[stage, dp], st, batch, draws)
         rows = _split_rows(batch)
@@ -243,12 +245,29 @@ def cases(tmp_path_factory):
                  [np.concatenate([noise[r][i] for r in range(N)])
                   for i in range(3)])
                 for _, _, (z, noise) in jax_steps]
+        runs[stage, dp] = {"jax": jax_steps, "per_rank": per_rank,
+                           "single_draws": single_draws, "cfg": cfg,
+                           "st_np": st_np, "batch": batch,
+                           "state_path": str(tmp / f"st{stage}.pt")}
+    return runs
+
+
+@pytest.fixture(scope="module")
+def cases(tmp_path_factory):
+    """Every JAX reference, the port's single-process references, and the
+    ranks' results of one launched group."""
+    tmp = tmp_path_factory.mktemp("dp")
+    out, jobs = {}, []
+    specs = jax_dp_runs(tmp)
+    for (stage, dp), r in specs.items():
         out[stage, dp] = {
-            "jax": jax_steps,
-            "single": _port_single(stage, cfg, st_np, batch, single_draws)}
+            "jax": r["jax"],
+            "single": _port_single(stage, r["cfg"], r["st_np"], r["batch"],
+                                   r["single_draws"])}
         jobs.append({"kind": "train", "args": dict(
-            stage=stage, cfg=cfg, state_path=str(tmp / f"st{stage}.pt"),
-            dp=dp, data=per_rank)})
+            stage=stage, cfg=r["cfg"], state_path=r["state_path"], dp=dp,
+            data=r["per_rank"])})
+    cfg2, wav = specs[2, "jit"]["cfg"], specs[2, "jit"]["batch"]
 
     # The K-step chain, and the losses' corrections.
     chunk = (0.5 * np.tanh(np.random.default_rng(8).standard_normal(

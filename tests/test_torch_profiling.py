@@ -10,6 +10,12 @@
   batches, with and without instance noise; and the step's outputs are
   the unprofiled step's, bit for bit: the regions change no arithmetic.
 - ``time_fn`` returns a mean time per call.
+- ``device_busy`` is the union of a trace's device intervals (kernels,
+  copies, sets) over the window: on synthetic traces with overlapping,
+  nested and disjoint intervals it counts each instant once, ignores the
+  host's events and the device-side region spans, never exceeds 1 (a
+  window shorter than the intervals' span is taken as that span), and
+  reads a ``torch.profiler`` run with no device work as 0.
 """
 
 import dataclasses
@@ -147,3 +153,53 @@ def test_time_fn():
     seconds = profiling.time_fn(lambda x: calls.append(x), 1, warmup=2,
                                 iters=5)
     assert len(calls) == 7 and seconds >= 0.0
+
+
+def _trace(tmp_path, spans, extra=()):
+    """A Chrome trace of device activities ``(cat, ts, dur)`` in µs, with
+    ``extra`` events besides."""
+    events = [{"ph": "X", "cat": cat, "name": f"k{i}", "ts": ts, "dur": dur,
+               "pid": 0, "tid": 7} for i, (cat, ts, dur) in enumerate(spans)]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events + list(extra)}))
+    return path
+
+
+@pytest.mark.parametrize("spans, union_us", [
+    # disjoint
+    ([("kernel", 0, 10), ("gpu_memcpy", 20, 5), ("gpu_memset", 40, 10)], 25),
+    # overlapping (a chain, as programmatic dependent launch leaves them)
+    ([("kernel", 0, 10), ("kernel", 5, 10), ("kernel", 12, 8)], 20),
+    # nested, given out of order
+    ([("kernel", 10, 2), ("kernel", 0, 30), ("gpu_memcpy", 5, 5)], 30),
+    # touching ends, and a zero-length set
+    ([("kernel", 0, 10), ("kernel", 10, 10), ("gpu_memset", 50, 0)], 20),
+])
+def test_device_busy_is_the_union_of_device_intervals(tmp_path, spans,
+                                                      union_us):
+    host = [{"ph": "X", "cat": "cpu_op", "name": "aten::mm", "ts": 0,
+             "dur": 100, "pid": 0, "tid": 1},
+            {"ph": "X", "cat": "gpu_user_annotation", "name": "d_step",
+             "ts": 0, "dur": 100, "pid": 0, "tid": 7},
+            {"ph": "i", "cat": "cuda_runtime", "name": "cudaLaunchKernel",
+             "ts": 3, "pid": 0, "tid": 1}]
+    path = _trace(tmp_path, spans, host)
+    summed = sum(dur for _, _, dur in spans)
+    assert profiling.device_busy(path, 100e-6) == pytest.approx(
+        union_us / 100)
+    assert profiling.device_busy(str(path), 1.0) == pytest.approx(
+        union_us / 1e6)
+    assert union_us <= summed
+    # A window shorter than the span is the span: the share stays <= 1.
+    span = max(ts + dur for _, ts, dur in spans) - min(ts for _, ts, _ in
+                                                       spans)
+    share = profiling.device_busy(path, 1e-6)
+    assert share == pytest.approx(union_us / span) and share <= 1.0
+
+
+def test_device_busy_of_a_run_without_device_work_is_0(tmp_path):
+    assert profiling.device_busy(_trace(tmp_path, []), 1e-3) == 0.0
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        torch.ones(8) @ torch.ones(8)
+    assert profiling.device_busy(prof, 1e-3) == 0.0

@@ -1,5 +1,6 @@
 """The ranks' side of the port's data-parallel tests (``test_torch_parallel``,
-and on the card ``test_torch_gpu``): functions that ``parallel.mesh.launch``
+``test_torch_dp_graph``, and on the card ``test_torch_gpu``): functions that
+``parallel.mesh.launch``
 runs in each spawned rank. Imports no JAX (the ranks do not load ``conftest.py``);
 the JAX references are computed in the test process and arrive here as
 arrays.
@@ -27,6 +28,7 @@ from music_synthesis_tpu_torch.parallel.shard_map_dp import (
     make_shardmap_stage2_many,
     make_shardmap_stage2_step,
 )
+from music_synthesis_tpu_torch.train import stage1, stage2
 from music_synthesis_tpu_torch.train.checkpoint import restore_checkpoint
 
 STEPS = {("jit", 1): make_dp_stage1_step, ("jit", 2): make_dp_stage2_step,
@@ -42,13 +44,34 @@ def params(state) -> dict:
                     if state.g_ema is not None else None)}
 
 
+def in_place(stage: int, cfg, dp: str, device: str = "cpu"):
+    """The DP step in place, ``GraphedStep`` under the default group (its
+    body runs eagerly on the CPU), as ``(state, batch, z=None,
+    noise=None) -> (state, metrics as floats)``."""
+    group = torch.distributed.group.WORLD
+    if stage == 2:
+        step = stage2.GraphedStep(cfg, device, group=group, dp=dp)
+    else:
+        step = stage1.GraphedStep(cfg, device, group, dp)
+
+    def run(state, batch, z=None, noise=None):
+        args = (noise,) if stage == 2 else (z, noise)
+        state, metrics = step(state, batch, *args)
+        return state, stage2._floats(metrics)
+
+    return run
+
+
 def train(stage: int, cfg, state_path: str, dp: str, data: list,
-          device: str = "cpu") -> dict:
+          device: str = "cpu", graphed: bool = False) -> dict:
     """Steps of one DP mode from the saved state; ``data[rank]`` is this
     rank's list of ``(batch, z, noise)`` per step (``z`` for stage 1 only,
-    ``None`` where the step draws). On a card: fp32 with cuDNN's TF32 off
-    and the log-mel kernel's "exact" mode."""
-    step = STEPS[dp, stage](cfg)
+    ``None`` where the step draws). ``graphed``: the step in place
+    (``in_place``, on the CPU) in place of the DP step's factory. On a
+    card: fp32 with cuDNN's TF32 off and the log-mel kernel's "exact"
+    mode."""
+    step = in_place(stage, cfg, dp, device) if graphed else STEPS[dp, stage](
+        cfg)
     state = restore_checkpoint(state_path, device)
     cuda = torch.device(device).type == "cuda"
     torch.backends.cudnn.allow_tf32 = not cuda
@@ -79,6 +102,26 @@ def many(cfg, state_path: str, chunk: np.ndarray) -> dict:
     return out
 
 
+def many_in_place(cfg, state_path: str, dp: str, chunk: np.ndarray) -> dict:
+    """``stage2.train_step_many`` under the group on this rank's rows of
+    ``chunk [K, B, L]`` against K calls of the in-place step
+    (``in_place``), both from the saved state and drawing their own
+    noise."""
+    group = torch.distributed.group.WORLD
+    local = torch.from_numpy(np.ascontiguousarray(mesh.shard_chunk(chunk)))
+    out = {}
+    st = restore_checkpoint(state_path, "cpu")
+    st, out["many_metrics"] = stage2.train_step_many(cfg, st, local,
+                                                     group=group, dp=dp)
+    out["many_params"] = params(st)
+    st = restore_checkpoint(state_path, "cpu")
+    step = in_place(2, cfg, dp)
+    for wav in local:
+        st, m = step(st, wav)
+    out["steps_metrics"], out["steps_params"] = m, params(st)
+    return out
+
+
 def loss_grads(stft_cfg, phase_args: tuple, x: np.ndarray, y: np.ndarray,
                gain: np.ndarray) -> dict:
     """Both losses of ``x * (1 + gain)`` against ``y`` on this rank's rows,
@@ -100,7 +143,8 @@ def loss_grads(stft_cfg, phase_args: tuple, x: np.ndarray, y: np.ndarray,
     return out
 
 
-KINDS = {"train": train, "many": many, "loss_grads": loss_grads}
+KINDS = {"train": train, "many": many, "many_in_place": many_in_place,
+         "loss_grads": loss_grads}
 
 
 def run_jobs(jobs: list[dict]) -> list:
