@@ -147,8 +147,12 @@ at the flagship's full width with the committed zoo weights, in phases:
    and the ``specgan_flux`` + ``vocoder_istft`` pipeline, symbolic batch,
    in fp32, for ``cuda,cpu``, saved, read, loaded and run at batch 1 and 4
    on the card and 1 on the CPU against the live modules (``FP32_TOL``,
-   cuDNN TF32 off), with file MB, export s and call ms against the live
-   module's; and one flagship stage-2 step and one stage-1 step under
+   cuDNN TF32 off), with file MB and export s; on the card the artifact
+   replays one CUDA graph per batch size: at batch 4 bit for bit with its
+   eager call and within ``FP32_TOL`` of the live graphed module (TF32
+   off), a batch-1 result kept across a batch-4 call unchanged, the
+   graphed, eager and live graphed ms and the artifact's pool bytes; and
+   one flagship stage-2 step and one stage-1 step under
    ``utils.profiling.trace``: every JAX region name of the config's step
    in the trace, and host ms, device ms and launches per region;
 14. the benchmark scripts (main path), in process: every scenario of
@@ -188,7 +192,15 @@ at the flagship's full width with the committed zoo weights, in phases:
    ``MSD_DENSE_TOL`` of their peaks; forward and forward + R1 ms); the
    step eager and graphed with and without ``dense_groups`` (ms, launches,
    busy share, kernel ms, and the eager ``d_step`` / ``g_step`` split);
-11. the ``kernels`` JSON line (printed after phase 15).
+16. the demo notebook (main path): every code cell of
+   ``notebooks/generate_and_listen_torch.ipynb`` not tagged ``display``,
+   in order in one namespace, from the notebook's directory (as Jupyter
+   runs it), with ``DEVICE = "cuda"`` (the zoo pair,
+   ``GraphedPipeline``: ``generate`` on 4 clips, the mel, the STFT
+   distance, ``generate_long`` of 8 patches, 6 interpolated clips and the
+   drifting walk): shapes, finite outputs, no log-mel launch, the clips
+   bit for bit with ``generate`` run eagerly; seconds per cell;
+11. the ``kernels`` JSON line (printed after phase 16).
 
 On the card the entry points replay CUDA graphs (``_graphs.py``): phases
 3-4 (copy-synthesis, serving), 5, 6 (the single-process stage-2 step and
@@ -197,17 +209,17 @@ training CLIs, the exported pair's service), 9 (every service, its
 buckets and streams, ``/reload``'s new service), 10 (``eval_checkpoint``,
 ``vocode``, ``generate``), 12 (the NCCL ranks' DP steps, the
 single-process reference steps, seqshard), 13's ``eval_checkpoint --run``
-and 14 (every scenario but the host clip and the kernel's own) run through
-them; the gloo ranks' DP steps, the traced steps and the kernel's own
-checks launch eagerly. Every busy share printed is the union of the
-device's activity intervals over the window (``utils.profiling.
-device_busy``: overlapping kernels count once), beside the summed kernel
-time. A graph's warm-up and capture build it
-and count no kernel launch; each replay counts the launches its capture
+and deployment artifacts, 14 (every scenario but the host clip and the
+kernel's own) and 16 run through them; the gloo ranks' DP steps, the
+traced steps and the kernel's own checks launch eagerly. Every busy
+share printed is the union of the device's activity intervals over the
+window (``utils.profiling.device_busy``: overlapping kernels count once),
+beside the summed kernel time. A graph's warm-up and capture build it and
+count no kernel launch; each replay counts the launches its capture
 recorded.
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
-and again around each of phases 6, 7, 8, 9, 10, 14 and 15 (and around phase
+and again around each of phases 6, 7, 8, 9, 10, 14, 15 and 16 (and around phase
 10's ``eval_checkpoint --run``) and around phase 13's ``extract_features``
 and ``eval_stage1``; phase 12's ranks read theirs around their steps.
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -227,6 +239,7 @@ import dataclasses
 import faulthandler
 import io
 import json
+import re
 import subprocess
 import sys
 import tempfile
@@ -2438,10 +2451,19 @@ def phase_deploy(tmp: Path) -> dict:
     """Both artifacts for ``cuda,cpu`` from the zoo flagships (fp32),
     saved, read, loaded and run at batch 1 and 4 on the card against the
     live modules (``FP32_TOL``, cuDNN TF32 off), and once on the CPU; the
-    file size, export seconds and call ms against the live module's."""
+    file size and export seconds. On the card the artifact replays one
+    CUDA graph per batch size: at batch 4 the graphed call bit for bit
+    with the same artifact's eager call (``disable_graphs``) and within
+    ``FP32_TOL`` of the live graphed module (the vocoder through a
+    ``Programs``, the pipeline through ``GraphedPipeline``), TF32 off; a
+    batch-1 result kept across a batch-4 call unchanged; the graphed,
+    eager and live graphed ms at batch 4 (CUDA events) and the
+    artifact's pool bytes."""
     from music_synthesis_tpu_torch import deploy, zoo
+    from music_synthesis_tpu_torch._graphs import Programs
     from music_synthesis_tpu_torch.config import PipelineConfig
-    from music_synthesis_tpu_torch.infer.generate import generate
+    from music_synthesis_tpu_torch.infer.generate import (GraphedPipeline,
+                                                          generate)
 
     s1 = zoo.load_pretrained("specgan_flux")
     s2 = zoo.load_pretrained("vocoder_istft")
@@ -2455,6 +2477,11 @@ def phase_deploy(tmp: Path) -> dict:
         live[dev]["vocoder"] = voc
         live[dev]["pipeline"] = lambda z, comp=comp, voc=voc: generate(
             cfg, comp, voc, z)
+    comp, voc = s1.model("cuda"), live["cuda"]["vocoder"]
+    voc_programs = Programs("cuda")
+    pipe = GraphedPipeline(cfg, comp, voc)
+    live_graphed = {"vocoder": lambda x: voc_programs("vocoder", voc, x),
+                    "pipeline": lambda z: pipe(generate, z)}
     g = torch.Generator().manual_seed(DEFAULT_PATH_SEED)
     out = {}
     for kind in ("vocoder", "pipeline"):
@@ -2492,19 +2519,58 @@ def phase_deploy(tmp: Path) -> dict:
                 check(err <= FP32_TOL, f"{kind} artifact on {dev} at batch "
                       f"{b} vs the live module: {err} > {FP32_TOL}")
             if dev == "cuda":
-                x = torch.randn((4, *shape), generator=g).cuda()
-                with torch.inference_mode():
-                    row["call_ms_b4"] = time_ms(lambda: art(x), samples=11,
-                                                reps=5, warmup=3)
-                    row["live_ms_b4"] = time_ms(lambda: live["cuda"][kind](x),
-                                                samples=11, reps=5, warmup=3)
+                row.update(graphed_artifact(kind, art, live_graphed[kind],
+                                            shape, g))
         log(f"[deploy] {kind}: {row['file_mb']:.1f} MB, exported for cuda,cpu "
             f"in {export_s:.1f} s, {row['n_params_baked']:,} baked; max abs "
-            f"err vs live {row['err']}; call at batch 4 {row['call_ms_b4']:.3f}"
-            f" ms vs live {row['live_ms_b4']:.3f} ms (CUDA events), on "
-            f"{card_name_and_power()}")
+            f"err vs live {row['err']}; at batch 4 (CUDA events) the graphed "
+            f"artifact {row['graphed_ms_b4']:.4f} ms, the eager artifact "
+            f"{row['eager_ms_b4']:.4f} ms, the live graphed module "
+            f"{row['live_graphed_ms_b4']:.4f} ms; graphed vs eager artifact "
+            f"{row['graphed_vs_eager']:.3g}, vs the live graphed module "
+            f"{row['graphed_vs_live']:.3g} (TF32 off); pool "
+            f"{row['pool_bytes']} B; on {card_name_and_power()}")
         out[kind] = row
     return out
+
+
+def graphed_artifact(kind: str, art, live_graphed, shape: tuple,
+                     g: torch.Generator) -> dict:
+    """Phase 13's checks and times of a loaded artifact's CUDA graphs."""
+    from music_synthesis_tpu_torch._graphs import disable_graphs
+
+    x1 = torch.randn((1, *shape), generator=g).cuda()
+    x4 = torch.randn((4, *shape), generator=g).cuda()
+    with torch.inference_mode():
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            first = art(x1)
+            kept = first.clone()
+            graphed = art(x4)
+            with disable_graphs():
+                eager = art(x4)
+            live = live_graphed(x4).clone()
+            again = art(x4)
+        torch.cuda.synchronize()
+        check(torch.equal(first, kept), f"{kind}: the batch-1 result changed "
+              "when the batch-4 graph replayed")
+        check(torch.equal(graphed, eager) and torch.equal(again, eager),
+              f"{kind}: graphed artifact not bit for bit with its eager call")
+        vs_live = (graphed - live).abs().max().item()
+        check(vs_live <= FP32_TOL, f"{kind}: graphed artifact vs the live "
+              f"graphed module {vs_live} > {FP32_TOL}")
+        ms = {"graphed_ms_b4": time_ms(lambda: art(x4), samples=11, reps=5,
+                                       warmup=3)}
+        with disable_graphs():
+            ms["eager_ms_b4"] = time_ms(lambda: art(x4), samples=11, reps=5,
+                                        warmup=3)
+        ms["live_graphed_ms_b4"] = time_ms(lambda: live_graphed(x4),
+                                           samples=11, reps=5, warmup=3)
+    return {**ms, "graphed_vs_eager": (graphed - eager).abs().max().item(),
+            "graphed_vs_live": vs_live,
+            "graphed_over_live": ms["graphed_ms_b4"]
+            / ms["live_graphed_ms_b4"],
+            "programs": len(art.programs.programs),
+            "pool_bytes": art.programs.pool_bytes()}
 
 
 def phase_profiling(rng: np.random.Generator, tmp: Path) -> dict:
@@ -3137,6 +3203,80 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
     return out
 
 
+NOTEBOOK = (Path(__file__).resolve().parent / "notebooks"
+            / "generate_and_listen_torch.ipynb")
+
+
+def phase_notebook() -> dict:
+    """Phase 16: the demo notebook's code cells that are not tagged
+    ``display``, in order, in one namespace, with the parameters cell's
+    ``DEVICE = "cuda"``: its outputs' shapes, all finite, and its first
+    clips ``wav`` bit for bit with the same ``generate`` run eagerly
+    (``disable_graphs``); the seconds per cell and of the phase."""
+    from music_synthesis_tpu_torch._graphs import disable_graphs
+    from music_synthesis_tpu_torch.infer.generate import generate
+
+    nb = json.loads(NOTEBOOK.read_text())
+    cells = [c for c in nb["cells"] if c["cell_type"] == "code"
+             and "display" not in c["metadata"].get("tags", [])]
+    ns: dict = {"__name__": "__notebook__"}
+    seconds, path = [], list(sys.path)
+    t_phase = time.perf_counter()
+    # In the notebook's directory, as Jupyter runs it: its
+    # sys.path.insert(0, "..") then names this checkout's root.
+    try:
+        with contextlib.chdir(NOTEBOOK.parent):
+            for i, cell in enumerate(cells):
+                src = "".join(cell["source"])
+                if "parameters" in cell["metadata"].get("tags", []):
+                    src, n = re.subn(r"^DEVICE = None", 'DEVICE = "cuda"',
+                                     src, flags=re.M)
+                    check(n == 1,
+                          "the parameters cell sets DEVICE = None once")
+                t0 = time.perf_counter()
+                exec(compile(src, f"{NOTEBOOK.name}, code cell {i}",
+                             "exec"), ns)
+                torch.cuda.synchronize()
+                seconds.append(time.perf_counter() - t0)
+    finally:
+        sys.path[:] = path  # the notebook's sys.path.insert(0, "..")
+    total = time.perf_counter() - t_phase
+    cfg = ns["cfg"]
+    n_z, t, hop = cfg.specgan.latent_dim, cfg.specgan.n_frames, \
+        cfg.vocoder.hop_length
+    want = {"wav": (4, t * hop), "mel": (4, t, cfg.specgan.n_mels),
+            "z_interp": (6, n_z), "wav_interp": (6, t * hop),
+            "z_walk": (1, 8, n_z), "wav_drift": ns["long_wav"].shape}
+    for key, shape in want.items():
+        check(ns[key].shape == shape, f"notebook {key} {ns[key].shape}, "
+              f"expected {shape}")
+    check(ns["long_wav"].shape[0] == 1 and ns["long_wav"].shape[1] > t * hop,
+          f"notebook long_wav {ns['long_wav'].shape}")
+    for key in ("wav", "mel", "d", "long_wav", "z_interp", "wav_interp",
+                "z_walk", "wav_drift"):
+        check(bool(np.isfinite(ns[key]).all()), f"notebook {key} not finite")
+    check(ns["d"] > 0, f"notebook STFT distance {ns['d']}")
+    check(ns["device"].type == "cuda" and next(
+        ns["vocoder"].parameters()).is_cuda, "the notebook ran off the card")
+    with disable_graphs():
+        eager = ns["pipe"](generate, torch.from_numpy(ns["z"]).cuda()
+                           ).float().cpu().numpy()
+    check(np.array_equal(ns["wav"], eager),
+          "notebook wav (graphed) not bit for bit with generate run eagerly: "
+          f"max |diff| {np.abs(ns['wav'] - eager).max()}")
+    out = {"cell_s": seconds, "seconds": total,
+           "programs": len(ns["pipe"].programs.programs),
+           "pool_bytes": ns["pipe"].programs.pool_bytes(),
+           "long_s": ns["long_wav"].shape[1] / cfg.frontend.sample_rate}
+    card = card_name_and_power()
+    log(f"[notebook] {len(cells)} code cells run (display cells skipped), "
+        "seconds per cell "
+        + ", ".join(f"{x:.2f}" for x in seconds)
+        + f"; the phase {total:.1f} s; {out['programs']} graphs, pool "
+        f"{out['pool_bytes']} B; wav bit for bit with eager; on {card}")
+    return out
+
+
 def cpu_gaps() -> dict:
     """The CPU's own max abs gaps between bf16 and fp32 at the default-path
     checks' inputs and weights: copy-synthesis (waveform and distance) and
@@ -3309,6 +3449,14 @@ def main() -> int:
     check(launches["cuda_graphs"] > 0,
           "phase 15 never launched the log-mel kernel")
 
+    banner("phase 16: the demo notebook (main path)")
+    logmel_kernel.n_launches = 0
+    notebook = phase_notebook()
+    launches["notebook"] = logmel_kernel.n_launches
+    log(f"[main] kernel launches in the notebook: {launches['notebook']}")
+    check(launches["notebook"] == 0, "the notebook launched the log-mel "
+          "kernel (its path starts from latents)")
+
     banner("phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
@@ -3358,7 +3506,8 @@ def main() -> int:
                                  by_scenario["bench_stage2_step"],
                              "bench_frontend_ab":
                                  by_scenario["bench_frontend_ab"],
-                             "cuda_graphs": launches["cuda_graphs"]},
+                             "cuda_graphs": launches["cuda_graphs"],
+                             "notebook": launches["notebook"]},
     }]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
@@ -3374,6 +3523,7 @@ def main() -> int:
                "port_modules": modules,
                "benchmark": benchmark,
                "cuda_graphs": graphs,
+               "notebook": notebook,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

@@ -183,7 +183,9 @@ class Programs:
     program of that key, built from ``fn`` at the first such call. So
     ``key`` must name everything ``fn`` reads besides its inputs (the
     modules, the static arguments). The programs replay one at a time:
-    every output is used or copied before the next call.
+    every output is used or copied before the next call. With ``fresh``,
+    a replay's outputs are copied out of the graph's buffers, so the
+    caller may keep them (an eager call's outputs are its own already).
     """
 
     def __init__(self, device: torch.device | str):
@@ -191,7 +193,7 @@ class Programs:
         self.pool = None
         self.programs: dict[tuple, GraphedProgram] = {}
 
-    def __call__(self, key, fn, *inputs):
+    def __call__(self, key, fn, *inputs, fresh: bool = False):
         if not enabled(self.device) or any(
                 type(a) is not torch.Tensor for a in inputs):
             return fn(*inputs)  # the CPU, or a fake or traced input
@@ -202,7 +204,14 @@ class Programs:
                 self.pool = torch.cuda.graph_pool_handle()
             program = GraphedProgram(fn, self.device, self.pool)
             self.programs[full] = program
-        return program(*inputs)
+        out = program(*inputs)
+        if not fresh:
+            return out
+        if isinstance(out, torch.Tensor):
+            return out.clone()
+        if isinstance(out, dict):
+            return {k: v.clone() for k, v in out.items()}
+        return type(out)(v.clone() for v in out)
 
     def pool_bytes(self) -> int | None:
         """Device bytes the shared pool holds (``pool_bytes``)."""

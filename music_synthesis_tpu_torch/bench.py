@@ -38,8 +38,9 @@ on it. The time per call is
 ``(t_n - t_1) / (n - 1)`` of a 1-call and an n-call run, the least over
 the repeats of the pairs that give a positive difference, after one
 warm-up pair. The CUDA-event time of each run, the device's busy share
-(``torch.profiler`` over a short extra run) and the peak memory of each
-scenario go to stderr.
+(``torch.profiler`` over an extra window of ``busy_calls`` calls, with
+the union of the device's activity per call beside the unprofiled call)
+and the peak memory of each scenario go to stderr.
 
 Exactly one JSON line goes to stdout, as soon as the metric ``--metric``
 selects is measured: ``{"metric", "value", "unit", "device",
@@ -67,7 +68,7 @@ from pathlib import Path
 from typing import Callable
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import ProfilerActivity, profile, schedule
 from torch.utils.flop_counter import FlopCounterMode
 
 from music_synthesis_tpu_torch._device import resolve_device
@@ -94,11 +95,12 @@ from music_synthesis_tpu_torch.ops.logmel import (
 from music_synthesis_tpu_torch.train import stage1, stage2
 from music_synthesis_tpu_torch.utils.profiling import (
     device_busy,
-    device_events,
+    device_spans,
+    device_union,
 )
 
 __all__ = ["DEFAULT_OUT", "PEAK_FLOPS", "ITERS", "RESULT_KEYS", "Env",
-           "card_record", "per_call_s", "graphed_and_eager_s",
+           "card_record", "busy_calls", "per_call_s", "graphed_and_eager_s",
            "inference_models",
            "generate_checksum", "stage1_checksum", "stage2_variants",
            "step_flops", "conv_precision", "bench_inference_rtf",
@@ -136,10 +138,16 @@ RESULT_KEYS = (
     "frontend_cpu_clip_x_realtime", "frontend_kernel_ms", "frontend_plain_ms",
     "frontend_kernel_speedup", "frontend_kernel_calls")
 
-# The profiled run that reads the device's busy share makes about this
-# many seconds of calls (at least one, at most n_iters): the profiler's
-# post-processing grows with the launches it recorded.
-_BUSY_S = 0.1
+# The profiled window that reads the device's busy share holds at least
+# this many calls and this many seconds of them (so more calls than
+# n_iters where a call is long), after one unprofiled warm call and one
+# call in the profiler's warm-up step, which takes its start. It holds at
+# most _BUSY_MAX_CALLS calls: the trace's export and parsing grow with
+# the activities it recorded, and the profiler's start, outside the
+# window, no longer needs seconds of short calls to dilute it.
+_BUSY_MIN_CALLS = 5
+_BUSY_MAX_CALLS = 64
+_BUSY_S = 0.5
 
 
 def log(*parts) -> None:
@@ -198,22 +206,45 @@ class Env:
             torch.cuda.synchronize(self.device)
 
 
-def _busy_share(env: Env, many: Callable, n: int) -> tuple[float, float]:
-    """``(busy, kernel_ms)`` of one profiled ``n``-call run: the share of
-    its wall time that the card spent in kernels, copies and sets (the
-    union of their intervals, ``utils.profiling.device_busy``), and the
-    summed time of those activities per call (overlapping ones counted
-    each). Only the card's activity is traced (tracing the host's
+def busy_calls(best: float) -> int:
+    """Calls of the profiled window, for calls of ``best`` seconds."""
+    return min(_BUSY_MAX_CALLS,
+               max(_BUSY_MIN_CALLS, math.ceil(_BUSY_S / best)))
+
+
+def _busy_share(env: Env, many: Callable,
+                n: int) -> tuple[float, float, float, float]:
+    """``(busy, kernel_ms, window_ms, union_ms)`` of a profiled ``n``-call
+    window: the share of its wall time that the card spent in kernels,
+    copies and sets (the union of their intervals,
+    ``utils.profiling.device_busy``), the summed time of those activities
+    per call (overlapping ones counted each), the window's wall ms per
+    call, and the union's ms per call. The profiler stretches a call of
+    many short activities, so the share reads low by the window's stretch
+    over the unprofiled call; the union per call, held against the
+    unprofiled call, does not take that stretch. One unprofiled call warms
+    the path; one more runs in the profiler's warm-up step, where the
+    profiler starts and records nothing; the window is the recorded step
+    after it. Only the card's activity is traced (tracing the host's
     operators too lengthens the host's side, and the trace's processing,
-    several times over); what is left still lengthens the run a little,
-    so the share reads low."""
+    several times over), and both numbers come from the trace's device
+    spans (``key_averages`` over the hundreds of thousands of activities
+    of a few graphed training steps takes tens of seconds)."""
+    float(many(1, env.generator(-1)))
     env.sync()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        float(many(1, env.generator(-1)))
+        prof.step()
         t0 = time.perf_counter()
         float(many(n, env.generator(-1)))
         wall = time.perf_counter() - t0
-    device_us = sum(e.self_device_time_total for e in device_events(prof))
-    return device_busy(prof, wall), device_us / 1e3 / n
+        prof.step()
+    spans = device_spans(prof)
+    kernel_ms = sum(e - s for s, e in spans) / 1e3 / n
+    union_ms = device_union(spans)[0] / 1e3 / n
+    return device_busy(spans, wall), kernel_ms, 1e3 * wall / n, union_ms
 
 
 def per_call_s(label: str, env: Env, many: Callable, n_iters: int,
@@ -263,12 +294,15 @@ def per_call_s(label: str, env: Env, many: Callable, n_iters: int,
         raise RuntimeError(f"{label}: every timing pair was noise-dominated")
     best = min(per)
     if cuda:
-        calls = max(1, min(n_iters, int(_BUSY_S / best)))
+        calls = busy_calls(best)
         t0 = time.perf_counter()
-        busy, kernel_ms = _busy_share(env, many, calls)
+        busy, kernel_ms, window_ms, union_ms = _busy_share(env, many, calls)
         log(f"[{label}] device busy share {busy:.3f}, kernel time "
-            f"{kernel_ms:.4f} ms per call (profiled run of {calls} calls, "
-            f"{time.perf_counter() - t0:.2f} s)")
+            f"{kernel_ms:.4f} ms per call (profiled window of {calls} calls, "
+            f"{window_ms:.4f} ms per call, {window_ms / (best * 1e3):.3f}x "
+            f"the unprofiled call; {time.perf_counter() - t0:.2f} s); "
+            f"union {union_ms:.4f} ms per call, "
+            f"{union_ms / (best * 1e3):.3f} of the unprofiled call")
     return best
 
 

@@ -26,6 +26,13 @@ artifact's payload cannot be run here, and ``load_artifact`` says so.
 
 The log-mel kernel is a ctypes launch that ``torch.export`` cannot trace,
 so artifacts take a mel or a latent, as the JAX package's do.
+
+A loaded artifact runs its program as the JAX package's ``Exported.call``
+runs a compiled one: on a card, one CUDA graph per input shape
+(``_graphs.Programs``, built at the first call of each shape, so a
+symbolic-batch artifact captures one graph per batch size it is called
+at); on the CPU, under ``_graphs.disable_graphs()`` and while tracing,
+op by op. Each call returns a tensor of its own, not the graph's buffer.
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from torch import nn
 
 from music_synthesis_tpu_torch._device import resolve_device
+from music_synthesis_tpu_torch._graphs import Programs
 from music_synthesis_tpu_torch.config import PipelineConfig, VocoderConfig
 from music_synthesis_tpu_torch.infer.generate import generate
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
@@ -76,12 +84,16 @@ class DeployArtifact:
     meta: dict
     device: torch.device
     module: nn.Module  # exported.module(), made once
+    programs: Programs  # its CUDA graphs on a card, one per input shape
 
     def __call__(self, *args) -> torch.Tensor:
-        """Runs the program on ``self.device``; arrays or tensors in."""
-        return self.module(*(torch.as_tensor(a, dtype=torch.float32,
-                                             device=self.device)
-                             for a in args))
+        """Runs the program on ``self.device``; arrays or tensors in. On a
+        card it replays the graph of the inputs' shapes, and the result is
+        copied out of the graph's buffer, so a later call leaves it as it
+        is."""
+        inputs = [torch.as_tensor(a, dtype=torch.float32, device=self.device)
+                  for a in args]
+        return self.programs("program", self.module, *inputs, fresh=True)
 
     @property
     def platforms(self) -> tuple[str, ...]:
@@ -296,4 +308,4 @@ def load_artifact(path: Path | str,
                          f"holds {sorted(programs)}")
     exported = torch.export.load(io.BytesIO(programs[dev.type]))
     return DeployArtifact(exported=exported, meta=meta, device=dev,
-                          module=exported.module())
+                          module=exported.module(), programs=Programs(dev))

@@ -6,6 +6,7 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import _disable_current_modes
 
 from music_synthesis_tpu_torch._device import refuse_capture
 from music_synthesis_tpu_torch.ops.frontend import hann_window
@@ -42,11 +43,17 @@ def _irdft_tensors(n_fft: int, device: torch.device):
 
 
 def _irdft_bases(n_fft: int, x: torch.Tensor):
-    """The bases on ``x``'s device. While ``torch.export``, ``torch.compile``
+    """The bases on ``x``'s device, from the cache. While ``torch.export``
     or a fake or functional mode traces (``x`` is then a tensor subclass),
-    they are made anew, so the cache never holds a traced tensor: one would
-    turn every later eager call on that device into a fake one."""
-    if torch.compiler.is_compiling() or type(x) is not torch.Tensor:
+    the cache is read with those modes set aside: it never holds a traced
+    tensor (one would turn every later eager call on that device into a
+    fake one), and the program lifts the device's bases as constants, with
+    no copy from the host in its graph (which a CUDA graph could not
+    capture). While ``torch.compile`` traces they are made anew."""
+    if type(x) is not torch.Tensor:
+        with _disable_current_modes():
+            return _irdft_tensors(n_fft, x.device)
+    if torch.compiler.is_compiling():
         return tuple(torch.from_numpy(m).to(x.device)
                      for m in irdft_matrices(n_fft))
     return _irdft_tensors(n_fft, x.device)

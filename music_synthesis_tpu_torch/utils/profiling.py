@@ -28,7 +28,8 @@ from torch.profiler import ProfilerActivity, profile
 
 from music_synthesis_tpu_torch._graphs import disable_graphs
 
-__all__ = ["trace", "device_events", "device_busy", "time_fn",
+__all__ = ["trace", "device_events", "device_spans", "device_union",
+           "device_busy", "time_fn",
            "step_regions", "region_split", "REGIONS", "OUTSIDE",
            "TRACE_FILE"]
 
@@ -117,17 +118,11 @@ def _trace_events(trace_file: str | Path) -> list[dict]:
     return data["traceEvents"] if isinstance(data, dict) else data
 
 
-def device_busy(source, window_s: float) -> float:
-    """The device's busy share of a window of ``window_s`` seconds: the
-    union of the intervals of its activities (kernels, copies, sets; the
-    Chrome trace's ``kernel``, ``gpu_memcpy`` and ``gpu_memset``) in
-    ``source``, a ``torch.profiler.profile`` that has ended or a Chrome
-    trace file, divided by the window. Activities that overlap (kernels on
-    other streams, or launched with programmatic dependent launch) count
-    once, so the share is at most 1: a window shorter than the span from
-    the first activity's start to the last one's end (the host's clock
-    against the trace's) is taken as that span. 0 when the source holds no
-    device activity."""
+def device_spans(source) -> list[tuple[float, float]]:
+    """The ``(start, end)`` µs of every device activity (kernels, copies,
+    sets; the Chrome trace's ``kernel``, ``gpu_memcpy`` and ``gpu_memset``)
+    in ``source``, a ``torch.profiler.profile`` that has ended or a Chrome
+    trace file, sorted by start."""
     if isinstance(source, (str, Path)):
         events = _trace_events(source)
     else:
@@ -135,10 +130,20 @@ def device_busy(source, window_s: float) -> float:
             path = Path(tmp) / TRACE_FILE
             source.export_chrome_trace(str(path))
             events = _trace_events(path)
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in events if e.get("cat") in _DEVICE_CATS)
+    return sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                  for e in events if e.get("cat") in _DEVICE_CATS)
+
+
+def device_union(source) -> tuple[float, float]:
+    """``(busy, extent)`` µs of the device's activities in ``source`` (a
+    source of ``device_spans``, or its list of spans): the length of the
+    union of their intervals, where activities that overlap (kernels on
+    other streams, or launched with programmatic dependent launch) count
+    once, and the span from the first one's start to the last one's end.
+    ``(0, 0)`` when the source holds no device activity."""
+    spans = source if isinstance(source, list) else device_spans(source)
     if not spans:
-        return 0.0
+        return 0.0, 0.0
     busy, (start, end) = 0.0, spans[0]
     for s, e in spans[1:]:
         if s > end:
@@ -147,7 +152,18 @@ def device_busy(source, window_s: float) -> float:
         else:
             end = max(end, e)
     busy += end - start
-    return busy / max(window_s * 1e6, end - spans[0][0])
+    return busy, end - spans[0][0]
+
+
+def device_busy(source, window_s: float) -> float:
+    """The device's busy share of a window of ``window_s`` seconds: the
+    union of the intervals of its activities in ``source`` (``device_union``)
+    divided by the window, so the share is at most 1: a window shorter than
+    the span from the first activity's start to the last one's end (the
+    host's clock against the trace's) is taken as that span. 0 when the
+    source holds no device activity."""
+    busy, extent = device_union(source)
+    return busy / max(window_s * 1e6, extent) if busy else 0.0
 
 
 #: ``region_split``'s row for device work launched outside every region.

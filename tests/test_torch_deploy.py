@@ -15,6 +15,17 @@ checks. Besides: the JAX package's ``.msx`` header read by the port's
 iSTFT basis cache under ``torch.export`` (an export before any eager call,
 in a fresh process, leaves the later eager calls and the program equal to
 another process's eager call, bit for bit).
+
+The call as a graph (a card replays one CUDA graph per input shape, and
+returns a copy of its buffer): on the CPU a loaded artifact runs its
+program eagerly, builds no program, and returns ``exported.module()``'s
+output bit for bit; the vocoder's and the pipeline's program bodies, at a
+fixed batch 1 and a symbolic batch at 1 and 3, make no host read that
+would break a capture (``test_torch_graphs.NoHostReads``); a result kept
+from one call is unchanged by the next; both programs, exported for the
+``meta`` device, hold their constants (the iSTFT bases) on the program's
+device and copy nothing onto it from the host (a CUDA graph cannot capture
+such a copy). On the card: ``tests/test_torch_graphs_gpu.py``.
 """
 
 import dataclasses
@@ -38,6 +49,7 @@ from music_synthesis_tpu_torch.infer.generate import generate
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.scripts import export_deploy
+from test_torch_graphs import NoHostReads
 
 torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parents[1]
@@ -253,3 +265,85 @@ def test_export_before_any_eager_call_leaves_eager_calls_correct():
     (reference,) = run("eager_only")
     assert eager == reference
     assert program == reference
+
+
+# -- the call as a graph ------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def artifacts(modules, tmp_path_factory):
+    """Vocoder and pipeline artifacts at batch 1 and symbolic, on the CPU."""
+    comp, voc = modules
+    tmp = tmp_path_factory.mktemp("graphed")
+    out = {}
+    for batch in (1, None):
+        for kind, (programs, meta) in (
+                ("vocoder", deploy.vocoder_artifact(
+                    voc.state_dict(), VOC, n_frames=16, batch=batch,
+                    platforms=("cpu",))),
+                ("pipeline", deploy.pipeline_artifact(
+                    CFG, comp.state_dict(), voc.state_dict(), batch=batch,
+                    platforms=("cpu",)))):
+            path = deploy.save_artifact(tmp / f"{kind}_{batch}.msx",
+                                        programs, meta)
+            out[kind, batch] = deploy.load_artifact(path, device="cpu")
+    return out
+
+
+def _input(kind, b, seed=0):
+    if kind == "vocoder":
+        return _mel(b, 16, seed)
+    return torch.randn(b, CFG.specgan.latent_dim,
+                       generator=torch.Generator().manual_seed(seed))
+
+
+@pytest.mark.parametrize("kind", ["vocoder", "pipeline"])
+def test_cpu_artifact_call_is_the_programs_eager_call(artifacts, kind):
+    art = artifacts[kind, None]
+    for b in (1, 3):
+        x = _input(kind, b, seed=b)
+        assert torch.equal(art(x), art.exported.module()(x))
+    assert art.programs.programs == {}  # nothing is built on the CPU
+
+
+@pytest.mark.parametrize("kind, batch", [("vocoder", 1), ("vocoder", None),
+                                         ("pipeline", 1),
+                                         ("pipeline", None)])
+def test_artifact_bodies_make_no_host_read(artifacts, kind, batch):
+    art = artifacts[kind, batch]
+    for b in ((1,) if batch else (1, 3)):
+        x = _input(kind, b, seed=10 + b)
+        with NoHostReads():
+            got = art.module(x)
+        assert got.shape[0] == b and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("kind", ["vocoder", "pipeline"])
+def test_a_kept_result_is_unchanged_by_the_next_call(artifacts, kind):
+    art = artifacts[kind, None]
+    first = art(_input(kind, 1, seed=20))
+    kept = first.clone()
+    art(_input(kind, 4, seed=21))
+    art(_input(kind, 1, seed=22))
+    assert torch.equal(first, kept)
+
+
+_COPIES = (torch.ops.aten._to_copy.default, torch.ops.aten.to.dtype_layout,
+           torch.ops.aten.to.device, torch.ops.aten.to.dtype)
+
+
+def test_programs_hold_constants_on_their_device_and_copy_none_onto_it(
+        modules):
+    comp, voc = modules
+    for programs, _ in (
+            deploy.vocoder_artifact(voc.state_dict(), VOC, n_frames=16,
+                                    batch=None, platforms=("meta",)),
+            deploy.pipeline_artifact(CFG, comp.state_dict(), voc.state_dict(),
+                                     batch=None, platforms=("meta",))):
+        program = programs["meta"]
+        assert len(program.constants) == 2  # the iSTFT bases
+        assert all(t.device.type == "meta"
+                   for t in program.constants.values())
+        copies = [n for n in program.graph.nodes
+                  if n.op == "call_function" and n.target in _COPIES
+                  and "device" in n.kwargs]
+        assert copies == []

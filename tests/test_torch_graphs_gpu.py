@@ -26,6 +26,12 @@ step's graph captures), both ``dp`` modes, graphed against eager within
 the same tolerances. Sequence-sharded vocoding over ``[cuda, cuda]``, one
 graph per shard, against its eager run within the card's own eager gap.
 A second service's audio against the first's: 2e-3 (``FP32_TOL``).
+Deployment artifacts (``deploy.load_artifact`` on the card, symbolic
+batch, the vocoder and the pipeline): the graphed call bit for bit with
+the same artifact's eager call at batch 1 and 4, one program per batch
+size, and a kept batch-1 result unchanged by a batch-4 replay; a
+``Programs`` call with ``fresh`` returns copies of the graph's buffers
+(tensor, tuple and dict outputs).
 """
 
 import contextlib
@@ -174,6 +180,24 @@ def test_mutated_tensors_are_updated_once_per_call(cuda):
     torch.testing.assert_close(out, torch.full((4,), 6.0, device=cuda))
     with pytest.raises(ValueError, match="differ"):
         program(torch.ones(5))
+
+
+def test_programs_fresh_outputs_are_copies_of_the_buffers(cuda):
+    programs = _graphs.Programs(cuda)
+    for key, fn in (("tensor", lambda x: x * 2),
+                    ("tuple", lambda x: (x * 2, x + 1)),
+                    ("dict", lambda x: {"a": x * 2, "b": x + 1})):
+        first = programs(key, fn, torch.ones(4, device=cuda), fresh=True)
+        again = programs(key, fn, torch.full((4,), 3.0, device=cuda))
+        assert type(first) is type(again)
+        out, buffers = ([t] if isinstance(t, torch.Tensor) else list(
+            t.values() if isinstance(t, dict) else t) for t in (first, again))
+        for o, b in zip(out, buffers):  # b: the graph's own buffers
+            assert o.data_ptr() != b.data_ptr()
+        torch.testing.assert_close(out[0], torch.full((4,), 2.0,
+                                                      device=cuda))
+        torch.testing.assert_close(buffers[0], torch.full((4,), 6.0,
+                                                          device=cuda))
 
 
 def test_stage1_graphed_steps_match_eager(cuda):
@@ -363,3 +387,57 @@ def test_service_replays_after_a_second_service_captures(cuda):
         assert len(first.programs[first.device].programs) >= 3
     finally:
         first.close()
+
+
+@pytest.fixture
+def artifacts(pair, cuda, tmp_path):
+    from music_synthesis_tpu_torch import deploy
+
+    comp, voc = pair
+    out = {}
+    for kind, (programs, meta) in (
+            ("vocoder", deploy.vocoder_artifact(
+                voc.state_dict(), CFG.vocoder, n_frames=16, batch=None,
+                platforms=("cuda",))),
+            ("pipeline", deploy.pipeline_artifact(
+                CFG, comp.state_dict(), voc.state_dict(), batch=None,
+                platforms=("cuda",)))):
+        path = deploy.save_artifact(tmp_path / f"{kind}.msx", programs, meta)
+        out[kind] = deploy.load_artifact(path, device=cuda)
+    return out
+
+
+def _artifact_input(kind, b, seed, device):
+    shape = ((b, 16, CFG.vocoder.n_mels) if kind == "vocoder"
+             else (b, CFG.specgan.latent_dim))
+    return torch.randn(shape, generator=torch.Generator().manual_seed(seed)
+                       ).to(device)
+
+
+@pytest.mark.parametrize("kind", ["vocoder", "pipeline"])
+def test_artifact_graphed_equals_eager_one_program_per_batch(artifacts, cuda,
+                                                              kind):
+    art = artifacts[kind]
+    for b in (1, 4):
+        x = _artifact_input(kind, b, b, cuda)
+        with torch.inference_mode():
+            with _graphs.disable_graphs():
+                eager = art(x)
+            graphed = [art(x) for _ in range(2)]  # the first builds
+        for g in graphed:
+            assert torch.equal(g, eager)
+    assert len(art.programs.programs) == 2
+    assert art.programs.pool_bytes() > 0
+
+
+@pytest.mark.parametrize("kind", ["vocoder", "pipeline"])
+def test_artifact_result_survives_the_next_replay(artifacts, cuda, kind):
+    art = artifacts[kind]
+    first = art(_artifact_input(kind, 1, 30, cuda))
+    kept = first.clone()
+    art(_artifact_input(kind, 4, 31, cuda))
+    art(_artifact_input(kind, 1, 32, cuda))  # the same program again
+    torch.cuda.synchronize()
+    assert torch.equal(first, kept)
+    buffers = [p._outputs for p in art.programs.programs.values()]
+    assert all(first.data_ptr() != b.data_ptr() for b in buffers)

@@ -11,15 +11,28 @@
   the unprofiled step's, bit for bit: the regions change no arithmetic.
 - ``time_fn`` returns a mean time per call.
 - ``device_busy`` is the union of a trace's device intervals (kernels,
-  copies, sets) over the window: on synthetic traces with overlapping,
-  nested and disjoint intervals it counts each instant once, ignores the
-  host's events and the device-side region spans, never exceeds 1 (a
-  window shorter than the intervals' span is taken as that span), and
-  reads a ``torch.profiler`` run with no device work as 0.
+  copies, sets; ``device_spans``, which it also takes as its source;
+  ``device_union`` gives the union and the span) over the window: on
+  synthetic traces with overlapping, nested and disjoint intervals it
+  counts each instant once, ignores the host's events and the device-side
+  region spans, never exceeds 1 (a window shorter than the intervals'
+  span is taken as that span), and reads a ``torch.profiler`` run with no
+  device work as 0.
+- ``bench``'s busy window (``bench.busy_calls``, ``bench._busy_share``),
+  with the profiler and the clock stubbed: for a stage-2 step's 73 ms and
+  42 ms it holds at least ``_BUSY_MIN_CALLS`` calls and ``_BUSY_S``
+  seconds, and reads within 0.02 of the calls' share even when it opens
+  on a 10 ms profiler-start gap (about what the fast stage-2 recipe's
+  two-call reading on the card implies); for a 2 ms and a 0.1 ms call it
+  stops at ``_BUSY_MAX_CALLS`` calls and reads the share with the gap in
+  the profiler's warm-up step, where ``_busy_share`` puts it; the union
+  per call is the calls' busy time; the former one-call window of the
+  73 ms step reads more than 0.02 off.
 """
 
 import dataclasses
 import json
+import math
 import re
 from pathlib import Path
 
@@ -27,6 +40,7 @@ import numpy as np
 import pytest
 import torch
 
+from music_synthesis_tpu_torch import bench
 from music_synthesis_tpu_torch.config import TINY
 from music_synthesis_tpu_torch.train import stage1, stage2
 from music_synthesis_tpu_torch.utils import profiling
@@ -189,17 +203,115 @@ def test_device_busy_is_the_union_of_device_intervals(tmp_path, spans,
         union_us / 100)
     assert profiling.device_busy(str(path), 1.0) == pytest.approx(
         union_us / 1e6)
+    # The trace's device spans, sorted, read once and passed on.
+    read = profiling.device_spans(path)
+    assert read == sorted((ts, ts + dur) for _, ts, dur in spans)
+    assert profiling.device_busy(read, 100e-6) == pytest.approx(
+        union_us / 100)
     assert union_us <= summed
     # A window shorter than the span is the span: the share stays <= 1.
     span = max(ts + dur for _, ts, dur in spans) - min(ts for _, ts, _ in
                                                        spans)
+    assert profiling.device_union(read) == pytest.approx((union_us, span))
+    assert profiling.device_union(path) == pytest.approx((union_us, span))
     share = profiling.device_busy(path, 1e-6)
     assert share == pytest.approx(union_us / span) and share <= 1.0
 
 
 def test_device_busy_of_a_run_without_device_work_is_0(tmp_path):
     assert profiling.device_busy(_trace(tmp_path, []), 1e-3) == 0.0
+    assert profiling.device_union([]) == (0.0, 0.0)
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         torch.ones(8) @ torch.ones(8)
     assert profiling.device_busy(prof, 1e-3) == 0.0
+
+
+# -- bench's busy window ------------------------------------------------------
+
+class _Card:
+    """A simulated card and clock: each call busies the card for ``busy``
+    of its ``call_s`` seconds. The profiler (``profile``) records the
+    calls of its recorded step only, and its start delays the first call
+    it sees by ``gap_s``: with ``gap_in_window`` the first recorded call
+    (the worst case: the delay falls in the window), else the call of its
+    warm-up step, where ``bench`` puts it."""
+
+    def __init__(self, call_s, busy, gap_s, gap_in_window=True):
+        self.call_s, self.busy, self.gap_s = call_s, busy, gap_s
+        self.gap_in_window = gap_in_window
+        self.t, self.profiling, self.recording = 0.0, False, False
+        self.gapped, self.spans, self.calls_in_window = False, [], 0
+
+    def perf_counter(self):
+        return self.t
+
+    def many(self, n, gen):
+        for _ in range(n):
+            if self.profiling and not self.gapped and (
+                    self.recording or not self.gap_in_window):
+                self.t += self.gap_s
+                self.gapped = True
+            if self.recording:
+                self.spans.append(("kernel", self.t * 1e6,
+                                   self.busy * self.call_s * 1e6))
+                self.calls_in_window += 1
+            self.t += self.call_s
+        return torch.ones(())
+
+    def profile(self, activities, schedule):
+        card = self
+
+        class Profile:
+            steps = 0
+
+            def __enter__(self):
+                card.profiling = True
+                return self
+
+            def __exit__(self, *exc):
+                card.profiling = card.recording = False
+
+            def step(self):
+                self.steps += 1
+                card.recording = self.steps == 1  # warm-up, then recorded
+
+            def export_chrome_trace(self, path):
+                _trace(Path(path).parent, card.spans).replace(path)
+
+        return Profile()
+
+
+@pytest.mark.parametrize("call_s", [0.073, 0.0425, 0.002, 0.0001])
+def test_bench_busy_window_holds_enough_calls_to_read_the_share(
+        monkeypatch, call_s):
+    busy, gap_s = 0.9, 0.010
+    n = bench.busy_calls(call_s)
+    assert bench._BUSY_MIN_CALLS <= n <= bench._BUSY_MAX_CALLS
+    # A window at its seconds' floor reads the share even with the
+    # profiler's start inside it; a window of short calls, cut at
+    # _BUSY_MAX_CALLS, reads it with the start in the warm-up step.
+    capped = n * call_s < bench._BUSY_S
+    assert n == bench._BUSY_MAX_CALLS if capped else (
+        n * call_s >= bench._BUSY_S)
+    card = _Card(call_s, busy, gap_s, gap_in_window=not capped)
+    monkeypatch.setattr(bench, "time", card)
+    monkeypatch.setattr(bench, "profile", card.profile)
+    env = bench.Env(torch.device("cpu"))
+    share, kernel_ms, window_ms, union_ms = bench._busy_share(env, card.many,
+                                                              n)
+    assert card.calls_in_window == n
+    assert share == pytest.approx(busy, abs=0.02)
+    assert kernel_ms == pytest.approx(busy * call_s * 1e3)
+    assert union_ms == pytest.approx(busy * call_s * 1e3)
+    in_window = 0.0 if capped else gap_s
+    assert window_ms == pytest.approx((n * call_s + in_window) * 1e3 / n)
+    # The former window (about 0.1 s, at most n_iters = 8 calls) of the
+    # 73 ms step: one call, which the gap puts far off.
+    if call_s == 0.073:
+        old = max(1, min(8, int(0.1 / call_s)))
+        card = _Card(call_s, busy, gap_s)
+        monkeypatch.setattr(bench, "time", card)
+        monkeypatch.setattr(bench, "profile", card.profile)
+        share, _, _, _ = bench._busy_share(env, card.many, old)
+        assert old == 1 and not math.isclose(share, busy, abs_tol=0.02)
