@@ -4,6 +4,10 @@
     python3 chip_smoke.py [--seed 0] [--budget 900]
     python3 chip_smoke.py --cpu-gaps     # on any machine: the CPU's own
                                          # bf16-vs-fp32 gaps (see CPU_GAPS)
+    python3 chip_smoke.py --kernel-times [--tree DIR]
+                                         # the log-mel kernel of the
+                                         # checkout DIR (default: this one):
+                                         # errors and times, one JSON line
 
 Drives ``music_synthesis_tpu_torch`` through the entry points a user calls,
 at the flagship's full width with the committed zoo weights, in phases:
@@ -20,10 +24,17 @@ at the flagship's full width with the committed zoo weights, in phases:
    ([1, 8192], the stage-2 CLI's audio dump, and [1, 88064], one 4 s eval
    clip, in the vocoder variant); max abs error against the plain version
    evaluated in float64 <= 2e-4 ("exact"), <= 2e-2 ("fast"); the times of both
-   paths and of the plain version (median of 21 CUDA-event samples of 10
-   back-to-back calls, after warm-up) beside two bounds: fp32 FFMA, and
-   three TF32 tensor-core passes (the one in the ``kernels`` line); and
-   the "fast" path's three frame tiles, each forced, at the three shapes;
+   paths and of the plain version under two timers (``time_ms``: median of
+   21 CUDA-event samples of 10 back-to-back calls, after warm-up;
+   ``graph_time_ms``: the same 10 calls captured in one CUDA graph and its
+   replays timed, so no host work is in the window) beside two bounds:
+   fp32 FFMA, and three TF32 tensor-core passes (the one in the
+   ``kernels`` line); and at the five vocoder shapes the "fast" path's
+   launch choices, each forced (a tile's K walk on 1, 2 or 4 blocks of a
+   cluster), with their errors and times under both timers, beside the
+   launcher's pick; the build's SASS must hold ``wgmma`` (``HGMMA``) and
+   TMA loads (``UTMALDG``) and no ``mma.sync`` (``HMMA``), and ptxas must
+   report no spills;
 3. copy-synthesis (main path): seeded harmonic test audio [16, 8192] and
    [4, 88064] through ``infer.copy_synthesis`` with ``zoo/vocoder_istft``;
    the kernel's launch count must rise;
@@ -393,6 +404,34 @@ def time_ms(fn, samples: int = 21, reps: int = 10, warmup: int = 5) -> float:
     return float(np.median(times))
 
 
+def graph_time_ms(fn, samples: int = 21, reps: int = 10,
+                  warmup: int = 3) -> float:
+    """Device time of one ``fn()`` in ms with no host work in the window:
+    after ``warmup`` eager calls (which fill the caches), ``reps`` calls
+    captured in one CUDA graph, whose replay is timed by a pair of CUDA
+    events; the median over ``samples`` replays, divided by ``reps``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(samples):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph
+    return float(np.median(times))
+
+
 def logmel_bound_ms(batch: int, padded_len: int, n_frames: int, cfg) -> dict:
     """Least times for one fused log-mel call on an H100, each the larger
     of operations over a peak rate and bytes over HBM bandwidth:
@@ -499,75 +538,170 @@ def phase_build():
     return result, result_native
 
 
-def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
-    from music_synthesis_tpu_torch.config import FrontendConfig
-    from music_synthesis_tpu_torch.ops import logmel as L
+KERNEL_SHAPES = ((16, 8192), (16, 88064), (4, 88064), (1, 8192), (1, 88064))
 
-    worst = {"exact": 0.0, "fast": 0.0}
-    rows = []
+
+def kernel_cases() -> list:
+    """Phase 2's cases, (shape, power, n_mels, variant): every shape the
+    main path gives the kernel, both variants and powers at the three
+    large ones, 160 mels."""
     cases = [(shape, power, 128, variant)
-             for shape in ((16, 8192), (16, 88064), (4, 88064))
+             for shape in KERNEL_SHAPES[:3]
              for power in (2.0, 1.0)
              for variant in ("for_vocoder", "log_mel")]
     cases.append(((16, 8192), 2.0, 160, "for_vocoder"))
     cases.append(((1, 8192), 2.0, 128, "for_vocoder"))  # stage-2 audio dumps
     cases.append(((1, 88064), 2.0, 128, "for_vocoder"))  # one 4 s eval clip
+    return cases
+
+
+def kernel_case(L, audio: dict, rng: np.random.Generator, shape, power: float,
+                n_mels: int, variant: str) -> tuple:
+    """The case's padded input, frame count, config, and each precision's
+    max abs error against the plain version evaluated in float64 (checked
+    against ``TOL``), and the plain version's own in fp32."""
+    from music_synthesis_tpu_torch.config import FrontendConfig
+
+    if shape not in audio:
+        audio[shape] = torch.from_numpy(test_audio(rng, *shape, 22050)).cuda()
+    wav = audio[shape]
+    cfg = FrontendConfig(power=power, n_mels=n_mels)
+    fused = (L.fused_log_mel_for_vocoder if variant == "for_vocoder"
+             else L.fused_log_mel)
+    # The plain version on the same padded input, in float64: the exact
+    # answer to the kernel's fp32 arithmetic. (In fp32 on the card its
+    # cuBLAS GEMM changes summation order with the batch: at [1, 88064]
+    # it is 2.4e-4 from the float64 answer, the kernel 8.5e-5.)
+    padded, n_frames = L.padded_input(wav, cfg, variant == "for_vocoder")
+    want = L.log_mel_frames_plain(padded.double(), cfg, n_frames)
+    plain_err = (L.log_mel_frames_plain(padded, cfg, n_frames).double()
+                 - want).abs().max().item()
+    errs = {}
+    for mode in ("exact", "fast"):
+        got = fused(wav, cfg, mode)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape, f"shape {got.shape} vs {want.shape}")
+        err = (got.double() - want).abs().max().item()
+        check(np.isfinite(err) and err <= TOL[mode],
+              f"log-mel kernel {shape} {variant} power={power} "
+              f"n_mels={n_mels} {mode}: max abs err {err} > {TOL[mode]}")
+        errs[mode] = err
+    return padded, n_frames, cfg, errs, plain_err, want
+
+
+def check_sass(library: Path, ptxas: tuple) -> dict:
+    """The built kernel's instructions: the "fast" path's ``wgmma``
+    (``HGMMA``) and TMA loads (``UTMALDG``) must be in the library's SASS
+    (``cuobjdump -sass``), and ptxas must report no spill bytes."""
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    counts = {op: len(re.findall(rf"\b{op}\b", sass))
+              for op in ("HGMMA", "UTMALDG", "HMMA")}
+    spills = [int(n) for line in ptxas
+              for n in re.findall(r"(\d+) bytes spill", line)]
+    log(f"[build] SASS of {library.name}: {counts}; spill bytes {sum(spills)}")
+    check(counts["HGMMA"] > 0 and counts["UTMALDG"] > 0,
+          "the fast path's kernel has no wgmma or no TMA load in its SASS")
+    check(counts["HMMA"] == 0, "an mma.sync product is left in the library")
+    check(not any(spills), f"ptxas spilled: {spills}")
+    return counts
+
+
+def phase_kernel_vs_plain(rng: np.random.Generator) -> dict:
+    from music_synthesis_tpu_torch.ops import logmel as L
+
+    worst = {"exact": 0.0, "fast": 0.0}
+    rows = []
     audio = {}
-    for shape, power, n_mels, variant in cases:
-        if shape not in audio:
-            audio[shape] = torch.from_numpy(test_audio(rng, *shape, 22050)).cuda()
-        wav = audio[shape]
-        cfg = FrontendConfig(power=power, n_mels=n_mels)
-        fused = (L.fused_log_mel_for_vocoder if variant == "for_vocoder"
-                 else L.fused_log_mel)
-        # The plain version on the same padded input, in float64: the exact
-        # answer to the kernel's fp32 arithmetic. (In fp32 on the card its
-        # cuBLAS GEMM changes summation order with the batch: at [1, 88064]
-        # it is 2.4e-4 from the float64 answer, the kernel 8.5e-5.)
-        padded, n_frames = L.padded_input(wav, cfg, variant == "for_vocoder")
-        want = L.log_mel_frames_plain(padded.double(), cfg, n_frames)
-        plain_err = (L.log_mel_frames_plain(padded, cfg, n_frames).double()
-                     - want).abs().max().item()
-        errs = {}
-        for mode in ("exact", "fast"):
-            got = fused(wav, cfg, mode)
-            torch.cuda.synchronize()
-            check(got.shape == want.shape, f"shape {got.shape} vs {want.shape}")
-            err = (got.double() - want).abs().max().item()
-            check(np.isfinite(err) and err <= TOL[mode],
-                  f"log-mel kernel {shape} {variant} power={power} "
-                  f"n_mels={n_mels} {mode}: max abs err {err} > {TOL[mode]}")
-            worst[mode] = max(worst[mode], err)
-            errs[mode] = err
+    for shape, power, n_mels, variant in kernel_cases():
+        padded, n_frames, cfg, errs, plain_err, want = kernel_case(
+            L, audio, rng, shape, power, n_mels, variant)
+        for mode in worst:
+            worst[mode] = max(worst[mode], errs[mode])
         # Time both kernel paths and the plain version (fp32) on the same
-        # padded input (padding is outside all three).
-        ms = time_ms(lambda: L.logmel_kernel(padded, cfg, n_frames, "fast"))
-        ms_exact = time_ms(lambda: L.logmel_kernel(padded, cfg, n_frames, "exact"))
-        plain_ms = time_ms(lambda: L.log_mel_frames_plain(padded, cfg, n_frames))
+        # padded input (padding is outside all three), under both timers.
+        calls = {
+            "ms": lambda: L.logmel_kernel(padded, cfg, n_frames, "fast"),
+            "ms_exact": lambda: L.logmel_kernel(padded, cfg, n_frames, "exact"),
+            "plain_ms": lambda: L.log_mel_frames_plain(padded, cfg, n_frames)}
+        times = {key: time_ms(fn) for key, fn in calls.items()}
+        times.update({f"{key}_device": graph_time_ms(fn)
+                      for key, fn in calls.items()})
         bound = logmel_bound_ms(shape[0], padded.shape[1], n_frames, cfg)
-        tile_ms = {}
+        split_ms, split_err, pick = {}, {}, None
         if variant == "for_vocoder" and power == 2.0 and n_mels == 128:
-            # Each of the "fast" path's frame tiles, forced (the launcher's
-            # choice among them rests on these times).
-            for tile in (64, 48, 32):
-                tile_ms[tile] = time_ms(lambda: L.logmel_kernel(
-                    padded, cfg, n_frames, "fast", tile_frames=tile))
-            log(f"[kernel]   fast by frame tile: " + ", ".join(
-                f"{t}: {v:.4f} ms" for t, v in tile_ms.items()))
+            # Each of the "fast" path's launch choices, forced (the
+            # launcher's table rests on these times): its error, and its
+            # time under the host timer and on the device alone.
+            pick = L.logmel_kernel.launcher_split(shape[0], n_frames, cfg,
+                                                  padded.device)
+            for split in L.SPLITS:
+                def one(split=split):
+                    return L.logmel_kernel(padded, cfg, n_frames, "fast",
+                                           split=split)
+                split_err[split] = (one().double() - want).abs().max().item()
+                check(split_err[split] <= TOL["fast"],
+                      f"fast split {split} at {shape}: max abs err "
+                      f"{split_err[split]} > {TOL['fast']}")
+                split_ms[split] = (time_ms(one), graph_time_ms(one))
+            log(f"[kernel]   fast by K split (the launcher's: {pick}; err, ms "
+                "under the host timer / device): " + ", ".join(
+                    f"{k}: {split_err[k]:.3g}, {a:.4f} / {b:.4f}"
+                    for k, (a, b) in split_ms.items()))
+        ms, ms_device = times["ms"], times["ms_device"]
         rows.append(dict(shape=list(shape), variant=variant, power=power,
                          n_mels=n_mels, max_abs_err=errs,
-                         plain_fp32_err=plain_err, ms=ms,
-                         ms_exact=ms_exact, plain_ms=plain_ms, **bound,
+                         plain_fp32_err=plain_err, **times, **bound,
                          bound_share=bound["bound_ms"] / ms,
-                         ffma_share=bound["ffma_ms"] / ms, tile_ms=tile_ms))
+                         bound_share_device=bound["bound_ms"] / ms_device,
+                         ffma_share=bound["ffma_ms"] / ms, split=pick,
+                         split_ms=split_ms, split_err=split_err))
         log(f"[kernel] logmel {list(shape)} {variant} power={power:g} "
-            f"mels={n_mels}: err exact {errs['exact']:.3g} fast {errs['fast']:.3g} "
-            f"(plain fp32 {plain_err:.3g}); "
-            f"fast (3xTF32) {ms:.4f} ms, exact (FFMA) {ms_exact:.4f} ms, "
-            f"plain {plain_ms:.4f} ms; bound {bound['bound_ms']:.4f} ms "
-            f"(3xTF32, {bound['bound_by']}), share {bound['bound_ms'] / ms:.3f}; "
-            f"FFMA bound {bound['ffma_ms']:.4f} ms, share {bound['ffma_ms'] / ms:.3f}")
+            f"mels={n_mels}: err exact {errs['exact']:.3g} fast "
+            f"{errs['fast']:.3g} (plain fp32 {plain_err:.3g}); host timer / "
+            f"device: fast (3xTF32) {ms:.4f} / {ms_device:.4f} ms, exact "
+            f"(FFMA) {times['ms_exact']:.4f} / {times['ms_exact_device']:.4f} "
+            f"ms, plain {times['plain_ms']:.4f} / "
+            f"{times['plain_ms_device']:.4f} ms; bound "
+            f"{bound['bound_ms']:.4f} ms (3xTF32, {bound['bound_by']}), "
+            f"share {bound['bound_ms'] / ms:.3f} / "
+            f"{bound['bound_ms'] / ms_device:.3f}; FFMA bound "
+            f"{bound['ffma_ms']:.4f} ms, share {bound['ffma_ms'] / ms:.3f}")
     return {"worst": worst, "rows": rows}
+
+
+def kernel_times(seed: int) -> dict:
+    """The log-mel kernel of the importable package (``--tree``): phase 2's
+    errors at every case (the same audio for the same seed), and at
+    ``KERNEL_SHAPES`` (vocoder variant, power 2, 128 mels) both paths'
+    times under both timers, the launcher's choices. For holding two trees
+    against each other in one session on one card."""
+    from music_synthesis_tpu_torch import _build
+    from music_synthesis_tpu_torch.ops import logmel as L
+
+    built = _build.build("logmel")
+    rng = np.random.default_rng(seed)
+    audio, worst, times = {}, {"exact": 0.0, "fast": 0.0}, {}
+    for shape, power, n_mels, variant in kernel_cases():
+        padded, n_frames, cfg, errs, _, _ = kernel_case(
+            L, audio, rng, shape, power, n_mels, variant)
+        for mode in worst:
+            worst[mode] = max(worst[mode], errs[mode])
+        if shape in KERNEL_SHAPES and variant == "for_vocoder" \
+                and power == 2.0 and n_mels == 128:
+            row = {}
+            for mode in ("fast", "exact"):
+                def one(mode=mode):
+                    return L.logmel_kernel(padded, cfg, n_frames, mode)
+                row[mode] = time_ms(one)
+                row[f"{mode}_device"] = graph_time_ms(one)
+            times[str(list(shape))] = row
+    return {"package": str(Path(L.__file__).resolve().parents[1]),
+            "build_s": built.seconds, "ptxas": list(built.ptxas),
+            "worst": worst, "times": times, "card": card_name_and_power()}
 
 
 def phase_copy_synthesis(rng: np.random.Generator) -> dict:
@@ -3317,6 +3451,12 @@ def main() -> int:
                     help="watchdog: dump stacks and exit after this many s")
     ap.add_argument("--cpu-gaps", action="store_true",
                     help="print the CPU's bf16-vs-fp32 gaps (CPU_GAPS) and exit")
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="print the log-mel kernel's errors and times "
+                         "(kernel_times) as one JSON line and exit")
+    ap.add_argument("--tree", type=Path, default=None,
+                    help="with --kernel-times: the checkout whose package is "
+                         "built and timed (default: this one)")
     args = ap.parse_args()
     if args.cpu_gaps:
         print(json.dumps(cpu_gaps()))
@@ -3325,6 +3465,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.kernel_times:
+        if args.tree is not None:
+            sys.path.insert(0, str(args.tree.resolve()))
+        print(json.dumps(kernel_times(args.seed)))
+        return 0
     faulthandler.dump_traceback_later(args.budget, exit=True)
     rng = np.random.default_rng(args.seed)
 
@@ -3335,6 +3480,7 @@ def main() -> int:
 
     banner("phase 1: build and environment")
     build, build_native = phase_build()
+    sass = check_sass(build.library, build.ptxas)
     banner("phase 2: kernel vs plain")
     kv = phase_kernel_vs_plain(rng)
 
@@ -3477,17 +3623,26 @@ def main() -> int:
         "bound_by": main_row["bound_by"],
         "library_ms": None,
         "ok": True,
-        "path": "3xTF32 mma.sync (precision 'fast', the main path's)",
+        "path": "3xTF32 wgmma, TMA ring (precision 'fast', the main path's)",
+        "ms_device": main_row["ms_device"],
+        "plain_ms_device": main_row["plain_ms_device"],
+        "split": main_row["split"],
+        "ms_by_split": {str(k): v for k, v in main_row["split_ms"].items()},
+        "split_by_shape": {str(r["shape"]): r["split"] for r in kv["rows"]
+                           if r["split"] is not None},
+        "sass": sass,
         "bound_kind": "three TF32 tensor-core passes of the rDFT and mel GEMMs",
         "ffma_bound_ms": main_row["ffma_ms"],
         "ms_exact_ffma": main_row["ms_exact"],
+        "ms_exact_ffma_device": main_row["ms_exact_device"],
         "max_abs_err_exact": kv["worst"]["exact"],
         "max_abs_err_fast": kv["worst"]["fast"],
         "build_s": build.seconds,
         "shape": [16, 8192],
         "eval_clip": {key: eval_row[key] for key in (
-            "shape", "ms", "ms_exact", "plain_ms", "bound_ms", "bound_by",
-            "ffma_ms", "ffma_by", "max_abs_err")},
+            "shape", "ms", "ms_device", "ms_exact", "ms_exact_device",
+            "plain_ms", "bound_ms", "bound_by", "ffma_ms", "ffma_by",
+            "max_abs_err")},
         "extract_features_clip": modules["extract_features"]["kernel"],
         "eval_stage1_batch": modules["eval_stage1"]["kernel"],
         "launches_by_path": {"copy_synthesis_and_serving": launches["logmel"],

@@ -19,15 +19,20 @@ arithmetic, and the two precision modes take two paths through it:
 
 - ``"fast"`` (the default, and what copy-synthesis runs) computes the rDFT
   on the tensor cores in 3xTF32: each operand is split into TF32 hi and lo
-  parts and ``hi*hi + hi*lo + lo*hi`` is accumulated in fp32 by
-  ``mma.sync``, which keeps fp32-level accuracy at three tensor-core passes
+  parts and ``hi*hi + hi*lo + lo*hi`` is accumulated in fp32 by Hopper's
+  ``wgmma``, which keeps fp32-level accuracy at three tensor-core passes
   (495 TFLOP/s dense for TF32 on an H100, against 67 for fp32 FFMA). The
-  bases are packed once per device in the order of the MMA's B fragments
-  (``fragment_bases``); the kernel splits both operands in registers.
+  bases are split once per device into hi and lo and stored K-major, their
+  samples in four phases ``k = 4 j + phase`` (``split_bases``); TMA loads
+  them into a ring of shared memory, from which ``wgmma`` reads them, and
+  the kernel splits the frames in registers. Each phase is summed on the
+  tensor cores from zero and the phases are added in fp32, which keeps
+  near-silent bins accurate. The phases of a tile may be shared by a
+  cluster of 2 or 4 blocks (``split``).
 - ``"exact"`` computes it in fp32 FFMA, in the plain version's summation
   order, so it agrees with the plain version to ~1e-6; the 3xTF32 path,
-  rounded elsewhere, lands up to ~7e-4 away in near-silent mel bins (on an
-  H100, PERF.md), past the 2e-4 gate that ``"exact"`` is held to.
+  rounded elsewhere, lands further away in near-silent mel bins (on an
+  H100, PERF.md) than the 2e-4 gate that ``"exact"`` is held to.
 
 Both end in the same mel product and log. The reference's ``fast`` is a
 bf16x3 split, which keeps fewer mantissa bits than 3xTF32.
@@ -54,7 +59,7 @@ __all__ = [
     "LogMelKernel",
     "logmel_kernel",
     "logmel_constants",
-    "fragment_bases",
+    "split_bases",
     "mel_groups",
     "fused_log_mel",
     "fused_log_mel_for_vocoder",
@@ -67,10 +72,15 @@ __all__ = [
 
 PRECISIONS = ("exact", "fast")
 _TENSOR_CORES = {"exact": 0, "fast": 1}  # the kernel path of each mode
-# The "fast" path's tiles (csrc/logmel.cu, tc::kBK and tc::kBN): its packed
-# bases are zero-padded to multiples of these samples and bins.
-TC_K_STEP = 16
-TC_BINS = 64
+_ENCODE_MISSING = 10000  # csrc/logmel.cu, tc::kEncodeMissing; + 1 + CUresult
+# The "fast" path's stage, sample phases and chunk (csrc/logmel.cu,
+# tc::kBK, tc::kPhases and tc::kBN): its split bases hold whole stages of
+# each phase of K_PHASES and whole chunks of bins, zero-padded, and both
+# paths' mel partial sums are kept per chunk of CHUNK_BINS bins.
+K_STAGE = 32
+K_PHASES = 4
+CHUNK_BINS = 64
+SPLITS = (1, 2, 4)  # the blocks that may share a tile's K walk
 
 
 @functools.lru_cache(maxsize=16)
@@ -99,30 +109,33 @@ def logmel_constants(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
 
 
 @functools.lru_cache(maxsize=16)
-def fragment_bases(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
-                   fmax: float, device: torch.device) -> torch.Tensor:
-    """The "fast" path's bases on ``device``: C and S (bins below n_used),
-    zero-padded to ``round_up(n_fft, TC_K_STEP)`` samples and
-    ``round_up(n_used, TC_BINS)`` bins, in the order of ``mma.m16n8k8``'s B
-    fragments: ``[k // 8, bin // 8, lane 4 g + t, 4]`` holds
-    ``C[8 kb + t], C[8 kb + t + 4], S[8 kb + t], S[8 kb + t + 4]`` of bin
-    ``8 nb + g``, so a thread reads its fragments of a k8 x n8 tile, cos and
-    sin, as one 16-byte word. fp32, ~4.2 MB at n_fft 1024 (the kernel
-    splits them into TF32 parts in registers)."""
-    refuse_capture("fragment_bases")
+def split_bases(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
+                fmax: float, device: torch.device) -> torch.Tensor:
+    """The "fast" path's bases on ``device``: C and S (bins below n_used)
+    split into TF32 parts, ``[chunk, hi | lo, cos | sin, 64 bins, kp]``
+    fp32, K-major (a bin's samples are contiguous), with ``kp =
+    round_up(n_fft, K_STAGE * K_PHASES)`` samples in phase order: column
+    ``phase * kp / K_PHASES + j`` holds sample ``K_PHASES * j + phase``
+    (so a block that takes one phase's samples reads whole stages); zero
+    past n_fft and n_used. ``hi`` keeps the top 10 mantissa bits of each
+    value and ``lo = value - hi`` (exact in fp32), so ``hi + lo`` is the
+    fp32 basis; the tensor cores read ``lo``'s top 10 bits. A chunk's cos
+    and sin rows are the N = 128 operand of one ``wgmma``; ~8.4 MB at
+    n_fft 1024."""
+    refuse_capture("split_bases")
     c, s, _, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
-    kp = -(-n_fft // TC_K_STEP) * TC_K_STEP
-    bins = -(-n_used // TC_BINS) * TC_BINS
-    parts = []
-    for basis in (c, s):
-        b = np.zeros((kp, bins), np.float32)
-        b[:n_fft, :n_used] = basis[:, :n_used]
-        parts.append(b.reshape(kp // 8, 2, 4, bins // 8, 8))
-    # k = 8 kb + 4 h + t, bin = 8 nb + g: [cs, kb, h, t, nb, g] ->
-    # [kb, nb, g, t, cs, h].
-    packed = np.stack(parts).transpose(1, 4, 5, 3, 0, 2)
-    return torch.from_numpy(np.ascontiguousarray(
-        packed.reshape(kp // 8, bins // 8, 32, 4))).to(device)
+    kp = -(-n_fft // (K_STAGE * K_PHASES)) * K_STAGE * K_PHASES
+    chunks = -(-n_used // CHUNK_BINS)
+    full = np.zeros((2, chunks * CHUNK_BINS, kp), np.float32)  # [cs, bin, k]
+    full[0, :n_used, :n_fft] = c[:, :n_used].T
+    full[1, :n_used, :n_fft] = s[:, :n_used].T
+    column = np.arange(kp)
+    full = full[..., K_PHASES * (column % (kp // K_PHASES))
+                + column // (kp // K_PHASES)]
+    hi = (full.view(np.uint32) & np.uint32(0xFFFFE000)).view(np.float32)
+    parts = np.stack([hi, full - hi])  # [hi | lo, cs, bin, k]
+    parts = parts.reshape(2, 2, chunks, CHUNK_BINS, kp).transpose(2, 0, 1, 3, 4)
+    return torch.from_numpy(np.ascontiguousarray(parts)).to(device)
 
 
 @functools.lru_cache(maxsize=16)
@@ -136,8 +149,8 @@ def mel_groups(n_fft: int, sample_rate: int, n_mels: int, fmin: float,
     refuse_capture("mel_groups")
     _, _, m, n_used = _host_constants(n_fft, sample_rate, n_mels, fmin, fmax)
     out = []
-    for b0 in range(0, n_used, TC_BINS):
-        nz = np.flatnonzero(np.any(m[b0:min(b0 + TC_BINS, n_used)] != 0.0,
+    for b0 in range(0, n_used, CHUNK_BINS):
+        nz = np.flatnonzero(np.any(m[b0:min(b0 + CHUNK_BINS, n_used)] != 0.0,
                                    axis=0))
         out.append((int(nz[0]) // 32, int(nz[-1]) // 32) if nz.size
                    else (2 ** 30, -1))
@@ -168,6 +181,17 @@ def _check(wav: torch.Tensor, cfg: FrontendConfig, precision: str) -> None:
         raise ValueError(f"unsupported device {wav.device}")
 
 
+def _error(rc: int) -> str:
+    """The C function's return code in words (csrc/logmel.cu,
+    logmel_forward)."""
+    if rc == _ENCODE_MISSING:
+        return "libcuda has no cuTensorMapEncodeTiled"
+    if rc > _ENCODE_MISSING:
+        return (f"cuTensorMapEncodeTiled refused the bases' map "
+                f"(CUresult {rc - _ENCODE_MISSING - 1})")
+    return f"CUDA error {rc}"
+
+
 class LogMelKernel:
     """ctypes binding of ``csrc/logmel.cu`` with a count of its launches.
 
@@ -184,6 +208,7 @@ class LogMelKernel:
         self.n_launches = 0
         self._forward = None  # the C functions, bound at first launch
         self._workspace_words = None
+        self._fast_split = None
 
     def _fn(self):
         if self._forward is None:
@@ -192,28 +217,45 @@ class LogMelKernel:
             words = lib.logmel_workspace_words
             words.argtypes = [i32, i32, i32, i32]
             words.restype = i64
+            split = lib.logmel_fast_split
+            split.argtypes = [i32, i32, i32, i32]
+            split.restype = i32
             fn = lib.logmel_forward
             fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr, i32, i64,
                            i32, i32, i32, i32, i32, i32, i32, ctypes.c_float,
                            i32, i32, ptr]
             fn.restype = i32
-            self._workspace_words, self._forward = words, fn
+            self._workspace_words, self._fast_split = words, split
+            self._forward = fn
         return self._forward
+
+    def launcher_split(self, batch: int, n_frames: int, cfg: FrontendConfig,
+                       device: torch.device) -> int:
+        """The K split (1, 2 or 4) the "fast" path's launcher picks on the
+        card ``device`` for ``batch`` clips of ``n_frames`` frames."""
+        self._fn()
+        n_used = _constants(cfg, device)[3]
+        with torch.cuda.device(device):
+            split = self._fast_split(batch, n_frames, cfg.n_fft, n_used)
+        if split < 1:
+            raise RuntimeError(f"no launch fits: {_error(-split)}")
+        return split
 
     def __call__(self, padded: torch.Tensor, cfg: FrontendConfig,
                  n_frames: int, precision: str = "fast",
-                 tile_frames: int = 0) -> torch.Tensor:
+                 split: int = 0) -> torch.Tensor:
         """Frames ``0..n_frames-1`` of each row of ``padded`` [B, L] (CUDA,
         fp32, contiguous) -> log-mel ``[B, n_frames, n_mels]``, on the
-        kernel's path for ``precision``. ``tile_frames`` 64, 48 or 32 forces
-        the "fast" path's frame tile (0: the launcher's choice)."""
+        kernel's path for ``precision``. ``split`` 1, 2 or 4 forces how many
+        blocks of a cluster share a tile's K walk on the "fast" path (0: the
+        launcher's choice, from ``SPLITS``)."""
         if not padded.is_cuda:
             raise ValueError("the log-mel kernel needs a CUDA tensor")
         tensor_cores = _TENSOR_CORES[precision]
         c, s, m, n_used = _constants(cfg, padded.device)
         key = (cfg.n_fft, cfg.sample_rate, cfg.n_mels, cfg.fmin,
                cfg.fmax_resolved, padded.device)
-        packed = fragment_bases(*key).data_ptr() if tensor_cores else None
+        bases = split_bases(*key).data_ptr() if tensor_cores else None
         groups = mel_groups(*key)
         b, length = padded.shape
         forward = self._fn()
@@ -225,14 +267,14 @@ class LogMelKernel:
         with torch.cuda.device(padded.device):
             stream = torch.cuda.current_stream(padded.device).cuda_stream
             rc = forward(
-                padded.data_ptr(), c.data_ptr(), s.data_ptr(), packed,
+                padded.data_ptr(), c.data_ptr(), s.data_ptr(), bases,
                 m.data_ptr(), groups.data_ptr(), out.data_ptr(),
                 workspace.data_ptr(), b, length, n_frames, cfg.hop_length,
                 cfg.n_fft, c.shape[1], n_used, cfg.n_mels,
                 int(cfg.power == 1.0), cfg.log_epsilon, tensor_cores,
-                tile_frames, stream)
+                split, stream)
         if rc != 0:
-            raise RuntimeError(f"logmel kernel launch failed: CUDA error {rc}")
+            raise RuntimeError(f"logmel kernel launch failed: {_error(rc)}")
         self.n_launches += 1
         return out
 

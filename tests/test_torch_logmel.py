@@ -224,43 +224,65 @@ def _tf32_truncate(x):
             & np.uint32(0xFFFFE000)).view(np.float32)
 
 
-def _unpack_fragment_bases(packed):
-    """C and S read back through the m16n8k8 B-fragment mapping: lane
-    4 g + t holds (k = t, n = g) and (k = t + 4, n = g) of cos, then sin."""
-    kb_n, nb_n = packed.shape[:2]
-    out = np.zeros((2, kb_n * 8, nb_n * 8), np.float32)  # [cs, k, n]
-    for lane in range(32):
-        g, t = divmod(lane, 4)
-        for cs in range(2):
-            for h in range(2):
-                out[cs, t + 4 * h::8, g::8] = packed[:, :, lane, 2 * cs + h]
-    return out
+def _split_bases(n_fft, n_mels, fmin=0.0, fmax=11025.0, sample_rate=22050):
+    """The stored parts ``[chunk, hi | lo, cos | sin, bin, column]`` read
+    back as ``[hi | lo, cos | sin, k, bin]`` (bins of all chunks in order,
+    samples in natural order: column ``phase * kp / 4 + j`` holds sample
+    ``4 j + phase``)."""
+    parts = L.split_bases(n_fft, sample_rate, n_mels, fmin, fmax,
+                          torch.device("cpu")).numpy()
+    chunks, _, _, bins, kp = parts.shape
+    column = np.arange(kp)
+    sample = 4 * (column % (kp // 4)) + column // (kp // 4)
+    natural = np.empty_like(parts)
+    natural[..., sample] = parts
+    return natural.transpose(1, 2, 4, 0, 3).reshape(2, 2, kp, chunks * bins)
 
 
 @pytest.mark.parametrize("n_fft, n_mels", [(1024, 128), (256, 32), (1000, 160)])
-def test_bases_are_packed_in_fragment_order(n_fft, n_mels):
+def test_bases_are_split_k_major(n_fft, n_mels):
+    """The "fast" path's bases: per 64-bin chunk, hi and lo of cos and sin,
+    each bin's samples contiguous (K-major) in phase order, zero-padded to
+    whole ring stages of each of the 4 sample phases and a whole chunk of
+    bins; hi + lo is the fp32 basis exactly and hi keeps at most 10
+    mantissa bits."""
     c, s, _, n_used = L.logmel_constants(n_fft, 22050, n_mels, 0.0, 11025.0,
                                          torch.device("cpu"))
-    packed = L.fragment_bases(n_fft, 22050, n_mels, 0.0, 11025.0,
-                              torch.device("cpu")).numpy()
-    kp = -(-n_fft // L.TC_K_STEP) * L.TC_K_STEP
-    bins = -(-n_used // L.TC_BINS) * L.TC_BINS
-    assert packed.shape == (kp // 8, bins // 8, 32, 4)
-    parts = _unpack_fragment_bases(packed)
+    stored = L.split_bases(n_fft, 22050, n_mels, 0.0, 11025.0,
+                           torch.device("cpu"))
+    kp = -(-n_fft // (4 * L.K_STAGE)) * 4 * L.K_STAGE
+    assert L.K_PHASES == 4
+    chunks = -(-n_used // L.CHUNK_BINS)
+    assert stored.dtype == torch.float32 and stored.is_contiguous()
+    assert stored.shape == (chunks, 2, 2, L.CHUNK_BINS, kp)
+    # K-major: neighbouring samples of one bin are neighbours in memory.
+    assert stored.stride()[-1] == 1 and stored.stride()[-2] == kp
+    parts = _split_bases(n_fft, n_mels)
+    hi, lo = parts
+    assert not (hi.view(np.uint32) & np.uint32(0x1FFF)).any()
     for cs, basis in enumerate((c.numpy(), s.numpy())):
-        np.testing.assert_array_equal(parts[cs, :n_fft, :n_used],
-                                      basis[:, :n_used])
-        assert not parts[cs, n_fft:].any() and not parts[cs, :, n_used:].any()
+        padded = np.pad(basis[:, :n_used],
+                        ((0, kp - n_fft), (0, chunks * L.CHUNK_BINS - n_used)))
+        np.testing.assert_array_equal(hi[cs] + lo[cs], padded)
+        np.testing.assert_array_equal(_tf32_truncate(basis[:, :n_used]),
+                                      hi[cs, :n_fft, :n_used])
+        assert not parts[:, cs, n_fft:].any()
+        assert not parts[:, cs, :, n_used:].any()
 
 
+@pytest.mark.parametrize("split", [1, 2, 4])
 @pytest.mark.parametrize("variant", ["log_mel", "for_vocoder"])
-def test_3xtf32_arithmetic_matches_pallas_interpret(variant):
+def test_3xtf32_arithmetic_matches_pallas_interpret(variant, split):
     """The "fast" kernel path's arithmetic, emulated on the CPU from the
-    packed bases (both operands split by truncation into TF32 hi + lo, as
-    the kernel does in registers; lo*hi + hi*lo + hi*hi),
-    against the Pallas kernel in interpret mode, within the 2e-4 of the
-    fp32 comparisons above on this signal (the card holds the kernel itself
-    to its plain version in chip_smoke.py)."""
+    stored hi and lo bases as the kernel walks them: in phase order (stored
+    column ``phase * kp / 4 + j`` against sample ``4 j + phase``), each
+    phase summed on its own, rank r of a split taking phases r, r + split,
+    ..., the phases' sums added in rank order; the frames split by
+    truncation into TF32 hi + lo as the kernel does in registers;
+    lo*hi + hi*lo + hi*hi, each operand read by the tensor cores through
+    its top 10 mantissa bits. Against the Pallas kernel in interpret mode,
+    within the 2e-4 of the fp32 comparisons above on this signal (the card
+    holds the kernel itself to its plain version in chip_smoke.py)."""
     jcfg, cfg = _both(n_mels=80)
     wav = _signal((2, 4096), seed=12)
     if variant == "log_mel":
@@ -278,17 +300,26 @@ def test_3xtf32_arithmetic_matches_pallas_interpret(variant):
                                          cfg.n_mels, cfg.fmin,
                                          cfg.fmax_resolved,
                                          torch.device("cpu"))
-    bases = _unpack_fragment_bases(L.fragment_bases(
-        cfg.n_fft, cfg.sample_rate, cfg.n_mels, cfg.fmin, cfg.fmax_resolved,
-        torch.device("cpu")).numpy())[:, :cfg.n_fft, :n_used]
-
-    def split(v):  # hi + lo as the MMA reads them
-        hi = _tf32_truncate(v)
-        return hi, _tf32_truncate(v - hi)
-
-    x_hi, x_lo = split(x)
-    re, im = (x_lo @ b_hi + x_hi @ b_lo + x_hi @ b_hi
-              for b_hi, b_lo in map(split, bases))
+    stored = L.split_bases(cfg.n_fft, cfg.sample_rate, cfg.n_mels, cfg.fmin,
+                           cfg.fmax_resolved, torch.device("cpu")).numpy()
+    chunks, _, _, bins, kp = stored.shape
+    # [hi | lo, cos | sin, column, bin], the columns as stored.
+    b_hi, b_lo = (_tf32_truncate(part) for part in stored.transpose(
+        1, 2, 4, 0, 3).reshape(2, 2, kp, chunks * bins)[..., :n_used])
+    per = kp // L.K_PHASES
+    x_pad = np.zeros((x.shape[0], kp), np.float32)
+    x_pad[:, :cfg.n_fft] = x
+    x_hi = _tf32_truncate(x_pad)
+    x_lo = _tf32_truncate(x_pad - x_hi)
+    re_im = 0.0
+    for rank in range(split):
+        for phase in range(rank, L.K_PHASES, split):
+            k = L.K_PHASES * np.arange(per) + phase
+            cols = slice(phase * per, (phase + 1) * per)
+            re_im = re_im + np.stack([
+                x_lo[:, k] @ bh[cols] + x_hi[:, k] @ bl[cols]
+                + x_hi[:, k] @ bh[cols] for bh, bl in zip(b_hi, b_lo)])
+    re, im = re_im
     power = re * re + im * im
     got = np.log(cfg.log_epsilon + power @ m.numpy()[:n_used])
     got = got.reshape(want.shape)
@@ -306,9 +337,9 @@ def test_mel_groups_cover_every_weight(n_fft, n_mels, fmin, fmax):
                                          torch.device("cpu"))
     groups = L.mel_groups(n_fft, 22050, n_mels, fmin, fmax,
                           torch.device("cpu")).numpy()
-    assert groups.shape == (-(-n_used // L.TC_BINS), 2)
+    assert groups.shape == (-(-n_used // L.CHUNK_BINS), 2)
     bins, mels = np.nonzero(m.numpy()[:n_used])
-    lo, hi = groups[bins // L.TC_BINS].T
+    lo, hi = groups[bins // L.CHUNK_BINS].T
     assert ((lo <= mels // 32) & (mels // 32 <= hi)).all()
     # The group-skipping sum equals the dense product on a power spectrum.
     power = np.random.default_rng(13).random((5, n_used)).astype(np.float32)
@@ -316,6 +347,6 @@ def test_mel_groups_cover_every_weight(n_fft, n_mels, fmin, fmax):
     sparse = np.zeros_like(dense)
     for c, (g0, g1) in enumerate(groups):
         cols = slice(32 * g0, 32 * (g1 + 1))
-        rows = slice(c * L.TC_BINS, min((c + 1) * L.TC_BINS, n_used))
+        rows = slice(c * L.CHUNK_BINS, min((c + 1) * L.CHUNK_BINS, n_used))
         sparse[:, cols] += power[:, rows] @ m.numpy()[rows, cols]
     np.testing.assert_allclose(sparse, dense, rtol=1e-5, atol=1e-7)
