@@ -42,6 +42,17 @@ outputs. ``Programs`` keeps one such program per key and input shapes.
 - ``disable_graphs()`` runs the entry points eagerly on the card too, as
   ``jax.disable_jit()`` does for the reference: to time the eager
   launches beside the graphs, and to compare the two.
+- A replay is timed from inside, unprofiled (``utils.profiling``'s
+  tracer, on by default): the capture collects the timing events that
+  ``profiling.region`` records as nodes of the graph (``capture_marks``),
+  and each program's ``Clock`` times every replay under the program's
+  ``label`` (``stage2_step``, ``stage1_step``, a pipeline function's
+  name): the host's period since its previous replay, the host's time in
+  ``replay()`` (the ``graph.launch`` span), the device's time between two
+  eager events around it and each region's. The events are read at the
+  next replay or by ``tracer.snapshot()``, only once they have completed:
+  the tracer never synchronises, and allocates nothing on the device per
+  replay. ``profiling.set_tracing(False)`` turns it off.
 """
 
 from __future__ import annotations
@@ -52,6 +63,11 @@ import torch
 
 from music_synthesis_tpu_torch._device import capturing
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+from music_synthesis_tpu_torch.utils.profiling import (
+    capture_marks,
+    span,
+    tracer,
+)
 
 __all__ = ["GraphedProgram", "Programs", "disable_graphs", "enabled",
            "flags", "pool_bytes"]
@@ -102,9 +118,11 @@ class GraphedProgram:
     first call builds the program: static input buffers on ``device``, the
     eager warm-up (``WARMUP`` calls on a side stream), the capture (into
     ``pool``, a ``torch.cuda.graph_pool_handle()`` shared with other
-    programs, else a pool of its own). Every call copies its inputs (on
-    any device, of the first call's shapes) into the buffers, replays, and
-    returns the static outputs.
+    programs, else a pool of its own), with the marks of its regions
+    (``profiling.capture_marks``). Every call copies its inputs (on any
+    device, of the first call's shapes) into the buffers (``load``),
+    replays, and returns the static outputs (``replay``), timed by the
+    tracer under ``label`` (``fn``'s name by default).
 
     ``mutates``: tensors ``fn`` updates in place (a training step's state).
     The warm-up's updates to them are undone before the first replay, so
@@ -112,7 +130,7 @@ class GraphedProgram:
     """
 
     def __init__(self, fn, device: torch.device | str, pool=None,
-                 mutates=()):
+                 mutates=(), label: str | None = None):
         device = torch.device(device)
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
@@ -120,7 +138,9 @@ class GraphedProgram:
             device = torch.device("cuda", torch.cuda.current_device())
         self.fn, self.device, self.pool = fn, device, pool
         self.mutates = list(mutates)
+        self.label = label or getattr(fn, "__name__", "program")
         self.graph: torch.cuda.CUDAGraph | None = None
+        self.clock = None
         self.launches_per_replay = 0
         self._inputs: list[torch.Tensor] = []
         self._outputs = None
@@ -143,9 +163,10 @@ class GraphedProgram:
         graph = torch.cuda.CUDAGraph()
         mark = logmel_kernel.n_launches
         # thread_local: other threads (NCCL's watchdog) may call CUDA.
-        with torch.cuda.graph(graph, pool=self.pool,
-                              capture_error_mode="thread_local"):
+        with capture_marks() as marks, torch.cuda.graph(
+                graph, pool=self.pool, capture_error_mode="thread_local"):
             self._outputs = self.fn(*self._inputs)
+        self.clock = tracer.clock(self.label, marks)
         self.launches_per_replay = logmel_kernel.n_launches - mark
         logmel_kernel.n_launches = count  # building is not a call
         if self.mutates:
@@ -154,7 +175,9 @@ class GraphedProgram:
         self.graph = graph
         self.fn = None  # the graph holds what the capture read
 
-    def __call__(self, *args):
+    def load(self, *args) -> None:
+        """Copies a call's inputs into the static buffers (building the
+        program at the first call)."""
         with torch.cuda.device(self.device):
             if self.graph is None:
                 self._build(args)
@@ -165,9 +188,20 @@ class GraphedProgram:
                     f"the captured {[tuple(b.shape) for b in self._inputs]}")
             for buf, a in zip(self._inputs, args):
                 buf.copy_(a)
-            self.graph.replay()
+
+    def replay(self):
+        """Replays the graph on the loaded inputs; returns the outputs."""
+        with torch.cuda.device(self.device):
+            rec = tracer.begin(self.clock)
+            with span("graph.launch") as launch:
+                self.graph.replay()
+            tracer.end(self.clock, rec, launch.ms)
         logmel_kernel.n_launches += self.launches_per_replay
         return self._outputs
+
+    def __call__(self, *args):
+        self.load(*args)
+        return self.replay()
 
 
 def _shapes(args) -> tuple:
@@ -186,6 +220,8 @@ class Programs:
     every output is used or copied before the next call. With ``fresh``,
     a replay's outputs are copied out of the graph's buffers, so the
     caller may keep them (an eager call's outputs are its own already).
+    ``label``: the tracer's name for a new program (``fn``'s name by
+    default); a call copies its inputs under the ``pipeline.inputs`` span.
     """
 
     def __init__(self, device: torch.device | str):
@@ -193,7 +229,8 @@ class Programs:
         self.pool = None
         self.programs: dict[tuple, GraphedProgram] = {}
 
-    def __call__(self, key, fn, *inputs, fresh: bool = False):
+    def __call__(self, key, fn, *inputs, fresh: bool = False,
+                 label: str | None = None):
         if not enabled(self.device) or any(
                 type(a) is not torch.Tensor for a in inputs):
             return fn(*inputs)  # the CPU, or a fake or traced input
@@ -202,9 +239,11 @@ class Programs:
         if program is None:
             if self.pool is None:
                 self.pool = torch.cuda.graph_pool_handle()
-            program = GraphedProgram(fn, self.device, self.pool)
+            program = GraphedProgram(fn, self.device, self.pool, label=label)
             self.programs[full] = program
-        out = program(*inputs)
+        with span("pipeline.inputs"):
+            program.load(*inputs)
+        out = program.replay()
         if not fresh:
             return out
         if isinstance(out, torch.Tensor):

@@ -25,6 +25,7 @@ from music_synthesis_tpu_torch.ops.overlap_add import (
     ola_window,
     overlap_add,
 )
+from music_synthesis_tpu_torch.utils.profiling import region
 
 __all__ = [
     "GraphedPipeline",
@@ -99,9 +100,12 @@ def generate_long(cfg: PipelineConfig, composer: SpectrogramGenerator,
                   vocoder: Vocoder, z: torch.Tensor,
                   crossfade_frames: int = 8) -> torch.Tensor:
     """``z[B, N, Z] -> wav[B, L]``: N composer patches crossfaded into one
-    long mel, then the chunked vocoder."""
-    mel_long = stitch_long_mel(cfg, composer, z, crossfade_frames)
-    return vocode_chunked(vocoder, mel_long, cfg)
+    long mel, then the chunked vocoder (the regions ``stitch_long_mel`` and
+    ``vocode_chunked``, ``utils.profiling.region``)."""
+    with region("stitch_long_mel"):
+        mel_long = stitch_long_mel(cfg, composer, z, crossfade_frames)
+    with region("vocode_chunked"):
+        return vocode_chunked(vocoder, mel_long, cfg)
 
 
 def stitch_long_mel(cfg: PipelineConfig, composer: SpectrogramGenerator,
@@ -147,7 +151,7 @@ class GraphedPipeline:
     ``torch.inference_mode``: eagerly on the CPU; on a card by replaying the
     CUDA graph of (fn, static, z's shape), captured at its first call
     (``_graphs.Programs``, in ``programs`` if given, shared with other
-    users of that pool). The result is then the graph's output buffer: use
+    users of that pool) and timed by the tracer under ``fn``'s name. The result is then the graph's output buffer: use
     it or copy it before the next call of any program of the pool.
     """
 
@@ -163,4 +167,5 @@ class GraphedPipeline:
 
         with torch.inference_mode():
             return self.programs(
-                (self.cfg, self.composer, self.vocoder, fn, static), body, z)
+                (self.cfg, self.composer, self.vocoder, fn, static), body, z,
+                label=fn.__name__)

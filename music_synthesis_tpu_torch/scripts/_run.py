@@ -5,7 +5,9 @@ checkpoints and the logged metrics with the collapse guard.
 The run directory has the JAX scripts' layout: ``config.json`` (the full
 resolved config, ``config_to_dict``), ``mel_stats.json`` (with
 ``--auto-mel-stats``), ``metrics.jsonl``, ``ckpt/`` and, when the guard
-stops a run, ``STATUS``.
+stops a run, ``STATUS``. On a card each line of ``metrics.jsonl`` also
+carries the tracer's medians of the graphed step's replays since the
+previous line (``trace.*``, ``Run.trace_keys``).
 
 Data parallelism (``--mesh N``): one process per rank. Under ``torchrun``
 ``WORLD_SIZE`` must equal N and each process joins the group
@@ -43,6 +45,7 @@ from music_synthesis_tpu_torch.parallel import mesh, multihost
 from music_synthesis_tpu_torch.train.checkpoint import CheckpointManager
 from music_synthesis_tpu_torch.train.guard import CollapseGuard
 from music_synthesis_tpu_torch.train.metrics import MetricsLogger
+from music_synthesis_tpu_torch.utils.profiling import medians, tracer
 
 __all__ = ["check_mesh", "start_ranks", "ranks", "is_main", "cli_device",
            "prepare_run", "host_tensor", "host_batches", "Run"]
@@ -181,13 +184,17 @@ def host_batches(make_batch, start: int, end: int, depth: int):
 
 class Run:
     """Checkpoints, metrics and the guard of one training run in
-    ``outdir``; ``guard_keys`` are the metrics the guard reads."""
+    ``outdir``; ``guard_keys`` are the metrics the guard reads, ``program``
+    the tracer's label of the run's graphed step (``utils.profiling``)."""
 
     def __init__(self, args: argparse.Namespace, outdir: Path,
-                 guard_keys: tuple[str, ...], group=None):
+                 guard_keys: tuple[str, ...], group=None,
+                 program: str = "stage2_step"):
         self.args = args
         self.outdir = outdir
         self.group = group
+        self.program = program
+        self.traced = 0  # the last replay a logged line has read
         self.main = is_main()
         self.ckpt = CheckpointManager(outdir / "ckpt")
         self.logger = (MetricsLogger(str(outdir / "metrics.jsonl"))
@@ -220,7 +227,8 @@ class Run:
         if (step + 1) % args.log_every == 0 or first:
             # The JAX step's metrics come back from jit with sorted keys.
             if self.main:
-                self.logger.log(step + 1, dict(sorted(metrics.items())))
+                self.logger.log(step + 1, {**dict(sorted(metrics.items())),
+                                           **self.trace_keys()})
             if self.guard is not None:
                 # Every rank holds the same (averaged) metrics, so every
                 # rank's guard stops at the same step.
@@ -237,6 +245,18 @@ class Run:
         if (step + 1) % args.ckpt_every == 0 and self.main:
             self.ckpt.save(step + 1, state)
         return False
+
+    def trace_keys(self) -> dict[str, float]:
+        """``trace.d_step_ms``, ``trace.g_step_ms``, ``trace.off_graph``
+        and ``trace.graph_launch_ms``: the tracer's medians over the
+        replays of the run's graphed step since the last logged line; none
+        where it holds no record of them (the CPU, which has no graphs)."""
+        log = tracer.snapshot()["programs"].get(self.program)
+        records = [r for r in (log["records"] if log else ())
+                   if r["replay"] > self.traced]
+        if records:
+            self.traced = records[-1]["replay"]
+        return {f"trace.{k}": v for k, v in medians(records).items()}
 
     def finish(self, state, start_step: int, last_step: int | None,
                t_start: float, dev: torch.device) -> None:

@@ -164,7 +164,8 @@ def _train(args, cfg: PipelineConfig, dev: torch.device, group) -> None:
             mel = log_mel_for_vocoder(wav, cfg.frontend)
             return (mel - cfg.mel_scaler.shift) / cfg.mel_scaler.scale
 
-    run = Run(args, outdir, guard_keys=("d_loss", "g_adv"), group=group)
+    run = Run(args, outdir, guard_keys=("d_loss", "g_adv"), group=group,
+              program="stage1_step")
     state = run.resume(stage1.make_train_state(cfg, cfg.train.seed, dev), dev)
     start_step = state.step
     if group is None:

@@ -12,8 +12,9 @@ storage called with the state's parameters (``functional_call``), one
 ``torch.autograd.grad`` per player, one G forward for both updates. Each
 step draws the latents, then (with instance noise) three normals, from the
 state's generator; ``z=`` and ``noise=`` replace those draws. The step's
-phases are ``torch.profiler.record_function`` regions under the JAX step's
-``jax.named_scope`` names (``utils/profiling.py``).
+phases are ``utils.profiling.region``s under the JAX step's
+``jax.named_scope`` names, timed per replay under the label
+``stage1_step``, with stage 2's host spans.
 
 Data parallelism (``group``, ``dp``) is ``train/stage2.py``'s: gradients
 and metrics averaged over the ranks, the draws of the global batch kept by
@@ -32,7 +33,6 @@ import functools
 import torch
 import torch.distributed as dist
 from torch.func import functional_call
-from torch.profiler import record_function
 
 from music_synthesis_tpu_torch._device import resolve_device
 from music_synthesis_tpu_torch._graphs import enabled, flags
@@ -72,6 +72,7 @@ from music_synthesis_tpu_torch.train.state import (
     make_optimizer,
     next_state,
 )
+from music_synthesis_tpu_torch.utils.profiling import region, span
 
 __all__ = ["make_models", "make_train_state", "forward_losses",
            "forward_and_loss", "GraphedStep", "graphed_step", "train_step"]
@@ -191,7 +192,7 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
     sigma, g_scalars, d_scalars = scalars[0], scalars[1:4], scalars[4:7]
     g_names = list(state.g_params)
     g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
-    with record_function("generator_fwd"):
+    with region("generator_fwd"):
         fake = functional_call(gen, dict(zip(g_names, g_leaves)), (z,))
     fake_sg = fake.detach()
 
@@ -208,16 +209,16 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
     d_leaves = [p.detach().requires_grad_() for p in state.d_params.values()]
     d_in = dict(zip(d_names, d_leaves))
     metrics = {}
-    with record_function("d_step"):
-        with record_function("disc_real"):
+    with region("d_step"):
+        with region("disc_real"):
             real_logit, real_feats = functional_call(disc, d_in, (d_real_in,))
-        with record_function("disc_fake"):
+        with region("disc_fake"):
             fake_logit, _ = functional_call(disc, d_in, (d_fake_in,))
         d_loss = d_loss_fn(t.gan_loss)(real_logit, fake_logit)
         if t.r1_gamma > 0:
             # R1 on D(noised real): the input gradient of the summed
             # logits, kept in the graph so D's gradient flows through it.
-            with record_function("r1_penalty"):
+            with region("r1_penalty"):
                 x = d_real_in.detach().requires_grad_()
                 logit, _ = functional_call(disc, d_in, (x,))
                 (gx,) = torch.autograd.grad(logit.float().sum(), x,
@@ -238,12 +239,12 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
             list(state.d_params.values()), d_updates)))
 
     # --- G step, against the updated D (which takes no gradient) ---
-    with record_function("g_step"):
+    with region("g_step"):
         # G's forward is generator_fwd's, whose graph G's gradient goes
         # back through: this region holds only the noise on its output.
-        with record_function("generator_fwd_g"):
+        with region("generator_fwd_g"):
             fake_g_in = fake if g_noise is None else fake + g_noise
-        with record_function("disc_fake_g"):
+        with region("disc_fake_g"):
             fake_logit_g, fake_feats = functional_call(disc, d_params,
                                                        (fake_g_in,))
         if t.reuse_real_features and t.d_input_noise == 0:
@@ -251,9 +252,9 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
         else:
             # The FM target is D's taps of the clean real batch (with noise
             # on, the D step's taps saw the noised one).
-            with record_function("disc_real_g"), torch.no_grad():
+            with region("disc_real_g"), torch.no_grad():
                 _, real_feats_g = functional_call(disc, d_params, (real,))
-        with record_function("losses"):
+        with region("losses"):
             adv = g_loss_fn(t.gan_loss)(fake_logit_g)
             fm = feature_matching_loss(real_feats_g, fake_feats)
             total = adv + t.lambda_feature_matching * fm
@@ -278,7 +279,7 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
 
     g_ema = state.g_ema
     if t.ema_decay > 0:
-        with record_function("ema"):
+        with region("ema"):
             ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
                                      t.ema_decay)
             torch._foreach_add_(ema, torch._foreach_mul(
@@ -330,7 +331,8 @@ class GraphedStep(InPlaceStep):
             raise ValueError("a CUDA graph cannot capture the collectives "
                              f"of a {dist.get_backend(group)} group")
         super().__init__(functools.partial(_update_in_place, cfg,
-                                           group=group, dp=dp), device)
+                                           group=group, dp=dp), device,
+                         "stage1_step")
         self.cfg, self.group, self.dp = cfg, group, dp
 
     def __call__(self, state: GANState, real_mel, z=None, noise=None
@@ -339,10 +341,14 @@ class GraphedStep(InPlaceStep):
         ``train_step``); the metrics stay tensors (the graph's buffers on
         the card: read them before the next call)."""
         real = torch.as_tensor(real_mel, dtype=torch.float32)
-        rng, z, noise = _draws(self.cfg, state, self.device, real.shape, z,
-                               noise, self.group, self.dp)
-        scalars = torch.tensor(_scalars(self.cfg, state), dtype=torch.float32)
-        metrics = self.run(state, real, z, scalars, *noise)
+        with span("step.draws"):
+            rng, z, noise = _draws(self.cfg, state, self.device, real.shape,
+                                   z, noise, self.group, self.dp)
+        with span("step.inputs"):
+            scalars = torch.tensor(_scalars(self.cfg, state),
+                                   dtype=torch.float32)
+            launch = self.load(state, real, z, scalars, *noise)
+        metrics = launch()
         return self.advanced(state, rng, state.d_opt.count + 1), metrics
 
 

@@ -22,9 +22,12 @@ written: each gradient is ``torch.autograd.grad`` of one loss with respect
 to one player's parameters. The G forward of the D step and the G step is
 one forward (G's parameters do not change in between, so the JAX step's
 two forwards give the same tensor). The step's phases are
-``torch.profiler.record_function`` regions under the JAX step's
-``jax.named_scope`` names (``utils/profiling.py``); ``generator_fwd_g``
-holds only the instance noise added to that one forward's output.
+``utils.profiling.region``s under the JAX step's ``jax.named_scope``
+names (``record_function`` regions, and in the graph timing events that
+the tracer reads per replay under the label ``stage2_step``);
+``generator_fwd_g`` holds only the instance noise added to that one
+forward's output. The host's work around a replay is in the spans
+``step.draws``, ``step.inputs``, ``graph.launch`` and ``step.read``.
 
 The conditioning mel is computed inside the step, with no gradient: with
 ``cfg.train.use_pallas_frontend`` by the fused log-mel kernel
@@ -60,7 +63,6 @@ import numpy as np
 import torch
 import torch.distributed as dist
 from torch.func import functional_call
-from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from music_synthesis_tpu_torch._device import resolve_device
@@ -90,6 +92,7 @@ from music_synthesis_tpu_torch.train.state import (
     make_optimizer,
     next_state,
 )
+from music_synthesis_tpu_torch.utils.profiling import region, span
 
 __all__ = ["make_models", "conditioning_mel", "make_train_state",
            "noise_scale", "Draws", "reduce_metrics", "GraphedStep",
@@ -289,7 +292,7 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     dev = wav.device
     b = wav.shape[0]
 
-    with record_function("frontend"):
+    with region("frontend"):
         mel = conditioning_mel(wav, cfg, precision)
     g_names = list(state.g_params)
     g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
@@ -298,7 +301,7 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     def run_g(x):
         return functional_call(gen, g_in, (x,))
 
-    with record_function("generator_fwd"):
+    with region("generator_fwd"):
         # G draws nothing, so the recomputation needs no RNG state (whose
         # stash a CUDA graph's capture would refuse).
         fake = (checkpoint(run_g, mel, use_reentrant=False,
@@ -319,26 +322,26 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     d_leaves = [p.detach().requires_grad_() for p in state.d_params.values()]
     d_in = dict(zip(d_names, d_leaves))
     metrics = {}
-    with record_function("d_step"):
+    with region("d_step"):
         if t.concat_disc_batch:
-            with record_function("disc_both"):
+            with region("disc_both"):
                 logits, feats = functional_call(
                     disc, d_in, (torch.cat([d_real_in, d_fake_in]),))
             real_logits = [l[:b] for l in logits]
             fake_logits = [l[b:] for l in logits]
             real_feats = [[f[:b] for f in head] for head in feats]
         else:
-            with record_function("disc_real"):
+            with region("disc_real"):
                 real_logits, real_feats = functional_call(disc, d_in,
                                                           (d_real_in,))
-            with record_function("disc_fake"):
+            with region("disc_fake"):
                 fake_logits, _ = functional_call(disc, d_in, (d_fake_in,))
         d_loss = d_loss_fn(t.gan_loss)(real_logits, fake_logits)
         if t.r1_gamma > 0:
             # R1 on D(real): the input gradient of the summed logits
             # (samples are independent), kept in the graph so D's gradient
             # flows through it.
-            with record_function("r1_penalty"):
+            with region("r1_penalty"):
                 x = d_real_in.detach().requires_grad_()
                 ls, _ = functional_call(disc, d_in, (x,))
                 (gx,) = torch.autograd.grad(sum(l.float().sum() for l in ls),
@@ -368,12 +371,12 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     real_feats_d = [[f.detach() for f in head] for head in real_feats]
 
     # --- G step, against the updated D (which takes no gradient) ---
-    with record_function("g_step"):
+    with region("g_step"):
         # G's forward is generator_fwd's, whose graph G's gradient goes
         # back through: this region holds only the noise on its output.
-        with record_function("generator_fwd_g"):
+        with region("generator_fwd_g"):
             fake_g_in = fake if g_noise is None else fake + g_noise
-        with record_function("disc_fake_g"):
+        with region("disc_fake_g"):
             fake_logits, fake_feats = functional_call(disc, d_params,
                                                       (fake_g_in,))
         if t.reuse_real_features and t.d_input_noise == 0:
@@ -381,9 +384,9 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
         else:
             # With instance noise the D step's taps saw the noised batch;
             # the FM target comes from the clean one.
-            with record_function("disc_real_g"), torch.no_grad():
+            with region("disc_real_g"), torch.no_grad():
                 _, real_feats_g = functional_call(disc, d_params, (wav,))
-        with record_function("losses"):
+        with region("losses"):
             adv = g_loss_fn(t.gan_loss)(fake_logits)
             fm = feature_matching_loss(real_feats_g, fake_feats)
             stft = multires_stft_loss(fake, wav, cfg.stft_loss, group)
@@ -414,7 +417,7 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
 
     g_ema = state.g_ema
     if t.ema_decay > 0:
-        with record_function("ema"):
+        with region("ema"):
             ema = torch._foreach_mul([state.g_ema[k] for k in g_names],
                                      t.ema_decay)
             torch._foreach_add_(ema, torch._foreach_mul(
@@ -474,7 +477,8 @@ class GraphedStep(InPlaceStep):
             raise ValueError("a CUDA graph cannot capture the collectives "
                              f"of a {dist.get_backend(group)} group")
         super().__init__(functools.partial(_update_in_place, cfg, precision,
-                                           group=group, dp=dp), device)
+                                           group=group, dp=dp), device,
+                         "stage2_step")
         self.cfg, self.group, self.dp = cfg, group, dp
 
     def __call__(self, state: GANState, wav, noise=None
@@ -483,10 +487,14 @@ class GraphedStep(InPlaceStep):
         ``train_step``); the metrics stay tensors (the graph's buffers on
         the card: read them before the next call)."""
         wav = torch.as_tensor(wav, dtype=torch.float32)
-        rng, noise = _draws(self.cfg, state, self.device, wav.shape, noise,
-                            self.group, self.dp)
-        scalars = torch.tensor(_scalars(self.cfg, state), dtype=torch.float32)
-        metrics = self.run(state, wav, scalars, *noise)
+        with span("step.draws"):
+            rng, noise = _draws(self.cfg, state, self.device, wav.shape,
+                                noise, self.group, self.dp)
+        with span("step.inputs"):
+            scalars = torch.tensor(_scalars(self.cfg, state),
+                                   dtype=torch.float32)
+            launch = self.load(state, wav, scalars, *noise)
+        metrics = launch()
         d_count = state.d_opt.count + _gate_open(self.cfg, state.step)
         return self.advanced(state, rng, d_count), metrics
 
@@ -524,8 +532,10 @@ def _run_step(cfg: PipelineConfig, state: GANState, wav, noise=None,
 
 
 def _floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
-    """Every metric as a Python float, with one device synchronisation."""
-    values = torch.stack([v.float() for v in metrics.values()]).tolist()
+    """Every metric as a Python float, with one device synchronisation
+    (the ``step.read`` span)."""
+    with span("step.read"):
+        values = torch.stack([v.float() for v in metrics.values()]).tolist()
     return dict(zip(metrics, values))
 
 

@@ -204,12 +204,13 @@ def next_state(state: GANState, rng: torch.Generator, d_count: int,
 class InPlaceStep:
     """A single-process training step in place, for one config and batch
     shape on one device: on a CUDA device one CUDA graph of ``body`` (the
-    reference's ``jax.jit(train_step, donate_argnums=1)``), on the CPU
-    ``body`` run eagerly.
+    reference's ``jax.jit(train_step, donate_argnums=1)``), timed by the
+    tracer under ``label`` (``utils.profiling``), on the CPU ``body`` run
+    eagerly.
 
     ``body(buffers, *inputs)`` updates the state ``buffers`` in place and
     returns the metrics, tensors. The state's tensors live in buffers this
-    object owns: ``run`` copies the given state into them, unless it is
+    object owns: ``load`` copies the given state into them, unless it is
     the state the last call returned. So, as with the reference's donated
     state, a state is no longer valid once a later step has run from it or
     from any state of the same buffers: copy what must outlive the step.
@@ -217,9 +218,10 @@ class InPlaceStep:
     so steps run back to back until their metrics are read.
     """
 
-    def __init__(self, body, device: torch.device | str):
+    def __init__(self, body, device: torch.device | str, label: str):
         self.body = body
         self.device = torch.device(device)
+        self.label = label
         self.buffers: GANState | None = None
         self.program = None
 
@@ -234,21 +236,25 @@ class InPlaceStep:
                                          [given[k] for k in buf])
         return self.buffers
 
-    def run(self, state: GANState, *inputs: torch.Tensor) -> dict:
-        """``body`` on ``state`` (adopted into the buffers) and ``inputs``;
-        the metrics are the graph's buffers on a card: read them before
-        the next call."""
+    def load(self, state: GANState, *inputs: torch.Tensor):
+        """Adopts ``state`` into the buffers and ``inputs`` into the step;
+        returns the call that runs ``body`` on them (the graph's replay on
+        a card, whose metrics are the graph's buffers: read them before
+        the next call)."""
         buffers = self._adopt(state)
         if self.device.type != "cuda":
-            return self.body(buffers, *(a.to(self.device) for a in inputs))
+            return functools.partial(self.body, buffers, *(
+                a.to(self.device) for a in inputs))
         inputs = [a if a.is_cuda else
                   a.pin_memory().to(self.device, non_blocking=True)
                   for a in inputs]
         if self.program is None:
             self.program = GraphedProgram(
                 functools.partial(self.body, buffers), self.device,
-                mutates=[t for g in state_groups(buffers) for t in g.values()])
-        return self.program(*inputs)
+                mutates=[t for g in state_groups(buffers) for t in g.values()],
+                label=self.label)
+        self.program.load(*inputs)
+        return self.program.replay
 
     def advanced(self, state: GANState, rng: torch.Generator,
                  d_count: int) -> GANState:

@@ -36,7 +36,9 @@ size, and a kept batch-1 result unchanged by a batch-4 replay; a
 
 import contextlib
 import dataclasses
+import json
 import threading
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -50,7 +52,11 @@ from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 from music_synthesis_tpu_torch.train import stage1, stage2
-from music_synthesis_tpu_torch.train.state import state_groups
+from music_synthesis_tpu_torch.train.state import (
+    drop_graphed_steps,
+    state_groups,
+)
+from music_synthesis_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 torch.set_num_threads(1)
@@ -441,3 +447,126 @@ def test_artifact_result_survives_the_next_replay(artifacts, cuda, kind):
     assert torch.equal(first, kept)
     buffers = [p._outputs for p in art.programs.programs.values()]
     assert all(first.data_ptr() != b.data_ptr() for b in buffers)
+
+
+# -- the tracer inside the replays -------------------------------------------
+
+REPO = Path(__file__).resolve().parents[1]
+TOP = ("frontend", "generator_fwd", "d_step", "g_step", "ema")
+
+
+@pytest.fixture
+def tracing(cuda):
+    """The tracer on and empty, no graphed step cached, before and after."""
+    drop_graphed_steps()
+    profiling.tracer.reset()
+    profiling.set_tracing(True)
+    yield profiling.tracer
+    profiling.set_tracing(True)
+    drop_graphed_steps()
+    profiling.tracer.reset()
+
+
+def _tiny_stage2():
+    return dataclasses.replace(CFG, train=dataclasses.replace(
+        CFG.train, batch_size=2, segment_length=2048, r1_gamma=1.0,
+        d_input_noise=0.1, ema_decay=0.999))
+
+
+def _wav(shape, cuda, seed=5):
+    return (0.5 * torch.tanh(torch.randn(
+        shape, generator=torch.Generator().manual_seed(seed)))).to(cuda)
+
+
+def test_steady_graphed_stage2_loop_captures_once(cuda, tracing):
+    cfg = _tiny_stage2()
+    state = stage2.make_train_state(cfg, seed=0, device=cuda)
+    wav = _wav((2, 2048), cuda)
+    for _ in range(12):
+        state, _ = stage2.train_step(cfg, state, wav)
+    log = tracing.snapshot()["programs"]["stage2_step"]
+    assert (log["captures"], log["replays"], log["unread"]) == (1, 12, 0)
+    records = log["records"]
+    assert all(r["replay_ms"] > 0 and r["launch_ms"] > 0 for r in records)
+    assert all(r["period_ms"] > 0 for r in records[:-1])
+    assert records[-1]["period_ms"] is None
+    assert set(records[0]["region_ms"]) == set(profiling.step_regions(cfg, 2))
+    assert len(tracing.snapshot()["spans"]["graph.launch"]) == 12
+
+
+@pytest.mark.parametrize("name", ["flagship", "rich"])
+def test_top_level_regions_and_the_rest_sum_to_the_replay(cuda, tracing,
+                                                          name):
+    raw = json.loads((REPO / "benchmark" / "configs" / f"{name}.json"
+                      ).read_text())
+    cfg = config.config_from_dict(raw["train"])
+    t = cfg.train
+    state = dataclasses.replace(
+        stage2.make_train_state(cfg, seed=0, device=cuda),
+        step=raw["state_step"])
+    wav = _wav((t.batch_size, t.segment_length), cuda)
+    for _ in range(5):
+        state, _ = stage2.train_step(cfg, state, wav)
+    clock = stage2.graphed_step(cfg, wav.shape, wav.device).program.clock
+    torch.cuda.synchronize()  # the test reads the events itself
+    tops = [m for m in clock.marks if m.depth == 0]
+    assert [m.name for m in tops] == [
+        n for n in profiling.step_regions(cfg, 2) if n in TOP]
+    assert {"frontend", "generator_fwd", "d_step", "g_step"} <= {
+        m.name for m in tops}
+    # The time outside the top-level regions, between the graph's events.
+    edges = [clock.start, *(e for m in tops for e in (m.enter, m.exit)),
+             clock.end]
+    outside = sum(a.elapsed_time(b) for a, b in zip(edges[::2], edges[1::2]))
+    log = tracing.snapshot()["programs"]["stage2_step"]
+    assert log["unread"] == 0
+    r = log["records"][-1]  # the replay whose events the test read
+    covered = sum(r["region_ms"][m.name] for m in tops) + outside
+    assert covered == pytest.approx(r["replay_ms"], rel=0.02), r
+    assert all(v >= 0 for v in r["region_ms"].values())
+    assert r["region_ms"]["d_step"] > r["region_ms"]["disc_both"]
+
+
+def _stage2_run(cfg, cuda, on: bool):
+    profiling.set_tracing(on)
+    drop_graphed_steps()
+    state = stage2.make_train_state(cfg, seed=0, device=cuda)
+    wav = _wav((2, 2048), cuda)
+    metrics = []
+    for _ in range(2):
+        state, m = stage2.train_step(cfg, state, wav)
+        metrics.append(m)
+    program = stage2.graphed_step(cfg, wav.shape, wav.device).program
+    marks = [m.name for m in program.clock.marks]
+    return ([g[k].clone() for g in state_groups(state) for k in sorted(g)],
+            metrics, marks)
+
+
+def test_graphed_step_and_pipeline_with_marks_equal_them_without(
+        cuda, tracing, pair):
+    cfg = _tiny_stage2()
+    with torch.backends.cudnn.flags(enabled=True, deterministic=True,
+                                    benchmark=False):
+        off, m_off, marks_off = _stage2_run(cfg, cuda, False)
+        on, m_on, marks_on = _stage2_run(cfg, cuda, True)
+    assert marks_off == [] and set(marks_on) == set(
+        profiling.step_regions(cfg, 2)), (marks_off, marks_on)
+    assert m_on == m_off, (m_on, m_off)
+    assert all(torch.equal(a, b) for a, b in zip(on, off))
+    comp, voc = pair
+    z = torch.randn((2, 3, CFG.specgan.latent_dim),
+                    generator=torch.Generator().manual_seed(2)).to(cuda)
+    outs = {}
+    for flag in (False, True):
+        profiling.set_tracing(flag)
+        pipe = gen.GraphedPipeline(CFG, comp, voc)
+        outs[flag] = [pipe(gen.generate_long, z, 4).clone() for _ in range(2)]
+        program, = pipe.programs.programs.values()
+        assert [m.name for m in program.clock.marks] == (
+            ["stitch_long_mel", "vocode_chunked"] if flag else [])
+    assert all(torch.equal(a, b) for a, b in zip(outs[True], outs[False]))
+    # No host read between the two calls: the first may still run at the
+    # second (then unread); the tracer reads the second once it has ended.
+    log = tracing.snapshot()["programs"]["generate_long"]
+    assert log["replays"] == 2 and log["unread"] <= 1, log
+    assert log["records"][-1]["region_ms"]["vocode_chunked"] > 0, log
