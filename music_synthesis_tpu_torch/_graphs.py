@@ -27,6 +27,9 @@ outputs. ``Programs`` keeps one such program per key and input shapes.
   calls: a replay adds the launches its capture recorded. The warm-up's
   eager launches and the capture build the program (as the reference's
   first call compiles its program) and are taken back out of the count.
+  ``ops/conv.py``'s ``grouped_wgrad2.n_calls`` (the second-order weight
+  terms of grouped convolutions) is kept the same way, and the tracer
+  holds each label's count per capture.
 - A program may hold NCCL's collectives (a training step under an NCCL
   group: ``parallel.mesh.graphable``). NCCL makes its communicator at the
   group's first collective, on the host, which is outside any capture
@@ -62,6 +65,7 @@ import contextlib
 import torch
 
 from music_synthesis_tpu_torch._device import capturing
+from music_synthesis_tpu_torch.ops.conv import grouped_wgrad2
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 from music_synthesis_tpu_torch.utils.profiling import (
     capture_marks,
@@ -141,7 +145,7 @@ class GraphedProgram:
         self.label = label or getattr(fn, "__name__", "program")
         self.graph: torch.cuda.CUDAGraph | None = None
         self.clock = None
-        self.launches_per_replay = 0
+        self.launches_per_replay = self.wgrad2_per_replay = 0
         self._inputs: list[torch.Tensor] = []
         self._outputs = None
 
@@ -152,7 +156,7 @@ class GraphedProgram:
         for buf, a in zip(self._inputs, args):
             buf.copy_(a)
         saved = [t.clone() for t in self.mutates]
-        count = logmel_kernel.n_launches
+        count, terms = logmel_kernel.n_launches, grouped_wgrad2.n_calls
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
@@ -161,14 +165,17 @@ class GraphedProgram:
                 self.fn(*self._inputs)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        mark = logmel_kernel.n_launches
+        mark, terms_mark = logmel_kernel.n_launches, grouped_wgrad2.n_calls
         # thread_local: other threads (NCCL's watchdog) may call CUDA.
         with capture_marks() as marks, torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
             self._outputs = self.fn(*self._inputs)
-        self.clock = tracer.clock(self.label, marks)
         self.launches_per_replay = logmel_kernel.n_launches - mark
-        logmel_kernel.n_launches = count  # building is not a call
+        self.wgrad2_per_replay = grouped_wgrad2.n_calls - terms_mark
+        self.clock = tracer.clock(self.label, marks,
+                                  grouped_wgrad2=self.wgrad2_per_replay)
+        # building is not a call
+        logmel_kernel.n_launches, grouped_wgrad2.n_calls = count, terms
         if self.mutates:
             torch._foreach_copy_(self.mutates, saved)
         self.pool = graph.pool()
@@ -197,6 +204,7 @@ class GraphedProgram:
                 self.graph.replay()
             tracer.end(self.clock, rec, launch.ms)
         logmel_kernel.n_launches += self.launches_per_replay
+        grouped_wgrad2.n_calls += self.wgrad2_per_replay
         return self._outputs
 
     def __call__(self, *args):

@@ -20,6 +20,18 @@ block-diagonal ``[*K, Cin, Cout]`` kernel built from the grouped one, the
 same parameters, gradients reaching only the real blocks. The JAX
 package's 2-D relayout ``FFoldedWNConv2d`` is not ported: the port
 computes the logical convolution it equals.
+
+Every other grouped convolution (``groups > 1``) runs as ``GroupedConv``,
+whose second derivative takes one grouped call per term. PyTorch's own
+double backward of a grouped convolution (R1's ``create_graph`` input
+gradient, differentiated again) computes the weight term one group at a
+time: a slice, a copy and a convolution per group, then a concatenation.
+In ``GroupedConv`` the input gradient taken under grad mode is itself a
+function, ``_GroupedConvInputGrad``, whose backward issues one grouped
+convolution for the output-gradient term and one grouped weight-gradient
+call for the weight term; ``grouped_wgrad2.n_calls`` counts the latter.
+Without grad mode, the backward is the single ``convolution_backward``
+that native autograd dispatches, with the same mask.
 """
 
 from __future__ import annotations
@@ -30,10 +42,123 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-__all__ = ["WNConv", "WNConvTranspose1d", "avg_pool1d", "block_diagonal",
-           "conv_transpose_padding"]
+__all__ = ["GroupedConv", "WNConv", "WNConvTranspose1d", "avg_pool1d",
+           "block_diagonal", "conv_transpose_padding", "grouped_wgrad2"]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_aten = torch.ops.aten
+
+
+class _Count:
+    """A process-wide count, ``n_calls``."""
+
+    def __init__(self):
+        self.n_calls = 0
+
+
+#: Second-order weight terms issued as one grouped weight-gradient call
+#: (``_GroupedConvInputGrad.backward``): up by one per call here, and in
+#: ``_graphs.GraphedProgram`` by what its capture issued at each replay
+#: (the warm-up and the capture that build a graph are taken back out).
+grouped_wgrad2 = _Count()
+
+
+def _needed(ctx, n_inputs: int) -> list[bool]:
+    """Which of a function's first ``n_inputs`` inputs (tensors or None)
+    this backward must return a gradient for, as the engine asks a native
+    node: none where the input takes no gradient or the engine will not
+    run its node in this pass; a leaf, which the engine cannot be asked
+    about under ``autograd.grad``, where it requires grad."""
+    nodes = [node for node, _ in ctx.next_functions]
+    nodes += [None] * (n_inputs - len(nodes))
+    out = []
+    for node, need in zip(nodes[:n_inputs], ctx.needs_input_grad):
+        if node is None or not need:
+            out.append(False)
+        elif hasattr(node, "variable"):  # AccumulateGrad
+            out.append(True)
+        else:
+            out.append(torch._C._will_engine_execute_node(node))
+    return out
+
+
+def _conv(x, w, b, args):
+    """``aten.convolution`` as ``F.conv{1,2}d(x, w, b, stride, padding 0,
+    dilation, groups)`` calls it; ``args`` is ``(stride, dilation,
+    groups)``."""
+    stride, dilation, groups = args
+    zeros = [0] * len(stride)
+    return _aten.convolution(x, w, b, stride, zeros, dilation, False, zeros,
+                             groups)
+
+
+def _conv_backward(gy, x, w, bias_sizes, args, mask):
+    """``aten.convolution_backward`` of ``_conv(x, w, b, args)`` as native
+    autograd calls it; None for each gradient ``mask`` leaves out (the
+    CPU's grouped path can return a tensor there)."""
+    stride, dilation, groups = args
+    zeros = [0] * len(stride)
+    grads = _aten.convolution_backward(gy, x, w, bias_sizes, stride, zeros,
+                                       dilation, False, zeros, groups, mask)
+    return [g if m else None for g, m in zip(grads, mask)]
+
+
+class _GroupedConvInputGrad(torch.autograd.Function):
+    """``grad_x`` of a grouped convolution, from ``grad_y`` and the kernel
+    (``x`` only for its shape), closed under one more derivative: the
+    backward issues one grouped convolution of ``gg_x`` with ``w`` for
+    ``grad_y``'s gradient and one grouped weight-gradient call for ``w``'s,
+    each over all groups at once."""
+
+    @staticmethod
+    def forward(ctx, gy, x, w, bias_sizes, args):
+        ctx.save_for_backward(gy, w)
+        ctx.args = args
+        return _conv_backward(gy, x, w, bias_sizes, args,
+                              [True, False, False])[0]
+
+    @staticmethod
+    def backward(ctx, ggx):
+        gy, w = ctx.saved_tensors
+        need_gy, _, need_w = _needed(ctx, 3)
+        ggy = gw = None
+        if need_gy:
+            ggy = _conv(ggx, w, None, ctx.args)
+        if need_w:
+            gw = _conv_backward(gy, ggx, w, None, ctx.args,
+                                [False, True, False])[1]
+            grouped_wgrad2.n_calls += 1
+        return ggy, None, gw, None, None
+
+
+class GroupedConv(torch.autograd.Function):
+    """``F.conv{1,2}d(x, w, b, stride=, dilation=, groups=)`` with no
+    padding (``WNConv`` pads first), the same aten call. Its backward
+    without grad mode is the one ``convolution_backward`` native autograd
+    dispatches, with the same mask; under grad mode (``create_graph``)
+    ``grad_x`` is ``_GroupedConvInputGrad``'s and the kernel's and bias's
+    gradients, where asked for, one native call's."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, stride, dilation, groups):
+        ctx.save_for_backward(x, w)
+        ctx.bias_sizes = None if b is None else [b.shape[0]]
+        ctx.args = (list(stride), list(dilation), groups)
+        return _conv(x, w, b, ctx.args)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, w = ctx.saved_tensors
+        mask = _needed(ctx, 3)
+        closed = torch.is_grad_enabled() and mask[0]
+        if closed:
+            mask[0] = False
+        gx, gw, gb = (_conv_backward(gy, x, w, ctx.bias_sizes, ctx.args, mask)
+                      if any(mask) else (None, None, None))
+        if closed:
+            gx = _GroupedConvInputGrad.apply(gy, x, w, ctx.bias_sizes,
+                                             ctx.args)
+        return gx, gw, gb, None, None, None
 
 
 def _init_std(scheme: str, init_scale: float, fan_in: int,
@@ -157,6 +282,9 @@ class WNConv(_WNBase):
             k, groups = block_diagonal(k, groups), 1
         w = k.permute(k.ndim - 1, k.ndim - 2, *range(k.ndim - 2))
         cdt = self.compute_dtype
+        if groups > 1:
+            return GroupedConv.apply(x.to(cdt), w.to(cdt), self._bias(),
+                                     self.stride, self.dilation, groups)
         return self._conv(x.to(cdt), w.to(cdt), self._bias(),
                           stride=self.stride, dilation=self.dilation,
                           groups=groups)

@@ -28,8 +28,11 @@ themselves, unprofiled:
   the host's time in ``graph.replay()`` (``launch_ms``), and the device's
   time between two eager events around the replay (``replay_ms``), with
   each region's ms. A label's counters (``captures``, ``replays``,
-  ``unread``) and a ring of its last ``RING`` replays are
-  ``tracer.snapshot()``'s.
+  ``unread``, and ``grouped_wgrad2``: the second-order weight terms of
+  grouped convolutions its last capture issued, which each replay
+  repeats) and a ring of its last ``RING`` replays are
+  ``tracer.snapshot()``'s, with the process-wide count of those terms
+  (``ops.conv.grouped_wgrad2``) under ``counters``.
 - **The tracer never synchronises.** A replay's device times are read at
   the program's next replay, or when the tracer is read, and only when its
   end event says it has ended (``query``); a replay still running at its
@@ -60,6 +63,8 @@ from typing import Callable
 
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
+
+from music_synthesis_tpu_torch.ops import conv
 
 __all__ = ["trace", "device_events", "device_spans", "device_union",
            "device_busy", "time_fn",
@@ -345,6 +350,7 @@ class _Log:
 
     def __init__(self, ring: int):
         self.captures = self.replays = self.unread = 0
+        self.grouped_wgrad2 = 0
         self.records: collections.deque = collections.deque(maxlen=ring)
 
 
@@ -381,11 +387,15 @@ class Tracer:
             log = self._logs[label] = _Log(self.ring)
         return log
 
-    def clock(self, label: str, marks=(), event=_timing_event) -> Clock:
-        """A new program's clock; counts a capture of ``label``."""
+    def clock(self, label: str, marks=(), event=_timing_event,
+              grouped_wgrad2: int = 0) -> Clock:
+        """A new program's clock; counts a capture of ``label``, which
+        issued ``grouped_wgrad2`` second-order weight terms."""
         if self.on:
             with self._lock:
-                self._log(label).captures += 1
+                log = self._log(label)
+                log.captures += 1
+                log.grouped_wgrad2 = grouped_wgrad2
         return Clock(label, marks, event)
 
     def _settle(self, clock: Clock) -> bool:
@@ -451,8 +461,9 @@ class Tracer:
 
     def snapshot(self) -> dict:
         """``{"programs": {label: {"captures", "replays", "unread",
-        "records"}}, "spans": {name: [(start_ns, end_ns), ...]}}``, copies;
-        first reads the device times of every replay that has ended."""
+        "grouped_wgrad2", "records"}}, "spans": {name: [(start_ns, end_ns),
+        ...]}, "counters": {"grouped_wgrad2": n}}``, copies; first reads
+        the device times of every replay that has ended."""
         with self._lock:
             for clock in list(self._pending):
                 self._settle(clock)
@@ -460,10 +471,12 @@ class Tracer:
                 "programs": {
                     label: {"captures": log.captures, "replays": log.replays,
                             "unread": log.unread,
+                            "grouped_wgrad2": log.grouped_wgrad2,
                             "records": [{**r, "region_ms": dict(
                                 r["region_ms"])} for r in log.records]}
                     for label, log in self._logs.items()},
-                "spans": {n: list(r) for n, r in self._spans.items()}}
+                "spans": {n: list(r) for n, r in self._spans.items()},
+                "counters": {"grouped_wgrad2": conv.grouped_wgrad2.n_calls}}
 
     def reset(self) -> None:
         """Forgets every counter, record and span."""

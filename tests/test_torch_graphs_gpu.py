@@ -20,7 +20,10 @@ after a few steps D's Adam moments can differ at rounding level
 bf16, zoo G, seeded D, ``flagship_config``: R1, instance noise, the
 MSD's dense block-diagonal convolutions), one step on each side of the
 warmup gate: graphed against eager within the same tolerances, one
-log-mel launch per replay. The same flagship step under a one-rank NCCL
+log-mel launch per replay. The graphed stage-2 step of the benchmark's
+flagship and rich configurations: 6 second-order weight terms of grouped
+convolutions per capture and replay in the flagship's (R1), none in
+rich's. The same flagship step under a one-rank NCCL
 group in this process (a real ``ProcessGroupNCCL``, whose collectives the
 step's graph captures), both ``dp`` modes, graphed against eager within
 the same tolerances. Sequence-sharded vocoding over ``[cuda, cuda]``, one
@@ -50,6 +53,7 @@ from music_synthesis_tpu_torch.infer.copy_synthesis import copy_synthesis
 from music_synthesis_tpu_torch.infer.stream import make_stream_fns
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
+from music_synthesis_tpu_torch.ops.conv import grouped_wgrad2
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 from music_synthesis_tpu_torch.train import stage1, stage2
 from music_synthesis_tpu_torch.train.state import (
@@ -525,6 +529,29 @@ def test_top_level_regions_and_the_rest_sum_to_the_replay(cuda, tracing,
     assert covered == pytest.approx(r["replay_ms"], rel=0.02), r
     assert all(v >= 0 for v in r["region_ms"].values())
     assert r["region_ms"]["d_step"] > r["region_ms"]["disc_both"]
+
+
+@pytest.mark.parametrize("name,terms", [("flagship", 6), ("rich", 0)])
+def test_graphed_stage2_step_counts_second_order_weight_terms(cuda, tracing,
+                                                              name, terms):
+    """The flagship's capture issues one grouped weight-gradient call per
+    grouped (not dense) MSD layer and scale in R1's double backward (groups
+    64 and 256, 3 scales); rich's none (no R1). Each replay adds them."""
+    raw = json.loads((REPO / "benchmark" / "configs" / f"{name}.json"
+                      ).read_text())
+    cfg = config.config_from_dict(raw["train"])
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=2))
+    state = stage2.make_train_state(cfg, seed=0, device=cuda)
+    wav = _wav((2, cfg.train.segment_length), cuda)
+    state, _ = stage2.train_step(cfg, state, wav)  # builds, then replays
+    before = grouped_wgrad2.n_calls
+    for _ in range(2):
+        state, _ = stage2.train_step(cfg, state, wav)
+    assert grouped_wgrad2.n_calls - before == 2 * terms
+    snap = tracing.snapshot()
+    assert snap["programs"]["stage2_step"]["grouped_wgrad2"] == terms
+    assert snap["counters"]["grouped_wgrad2"] == grouped_wgrad2.n_calls
 
 
 def _stage2_run(cfg, cuda, on: bool):
