@@ -27,9 +27,10 @@ outputs. ``Programs`` keeps one such program per key and input shapes.
   calls: a replay adds the launches its capture recorded. The warm-up's
   eager launches and the capture build the program (as the reference's
   first call compiles its program) and are taken back out of the count.
-  ``ops/conv.py``'s ``grouped_wgrad2.n_calls`` (the second-order weight
-  terms of grouped convolutions) is kept the same way, and the tracer
-  holds each label's count per capture.
+  The tracer's ``COUNTERS`` (``ops/conv.py``'s ``grouped_wgrad2``, the
+  second-order weight terms of grouped convolutions, and
+  ``ops/alias_free.py``'s ``aa_act``) are kept the same way, and the
+  tracer holds each label's counts per capture.
 - A program may hold NCCL's collectives (a training step under an NCCL
   group: ``parallel.mesh.graphable``). NCCL makes its communicator at the
   group's first collective, on the host, which is outside any capture
@@ -65,9 +66,9 @@ import contextlib
 import torch
 
 from music_synthesis_tpu_torch._device import capturing
-from music_synthesis_tpu_torch.ops.conv import grouped_wgrad2
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 from music_synthesis_tpu_torch.utils.profiling import (
+    COUNTERS,
     capture_marks,
     span,
     tracer,
@@ -145,7 +146,8 @@ class GraphedProgram:
         self.label = label or getattr(fn, "__name__", "program")
         self.graph: torch.cuda.CUDAGraph | None = None
         self.clock = None
-        self.launches_per_replay = self.wgrad2_per_replay = 0
+        self.launches_per_replay = 0
+        self.counts_per_replay: dict[str, int] = {}
         self._inputs: list[torch.Tensor] = []
         self._outputs = None
 
@@ -156,7 +158,8 @@ class GraphedProgram:
         for buf, a in zip(self._inputs, args):
             buf.copy_(a)
         saved = [t.clone() for t in self.mutates]
-        count, terms = logmel_kernel.n_launches, grouped_wgrad2.n_calls
+        count = logmel_kernel.n_launches
+        counts = {n: c.n_calls for n, c in COUNTERS.items()}
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(main)
@@ -165,17 +168,21 @@ class GraphedProgram:
                 self.fn(*self._inputs)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        mark, terms_mark = logmel_kernel.n_launches, grouped_wgrad2.n_calls
+        mark = logmel_kernel.n_launches
+        marked = {n: c.n_calls for n, c in COUNTERS.items()}
         # thread_local: other threads (NCCL's watchdog) may call CUDA.
         with capture_marks() as marks, torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
             self._outputs = self.fn(*self._inputs)
         self.launches_per_replay = logmel_kernel.n_launches - mark
-        self.wgrad2_per_replay = grouped_wgrad2.n_calls - terms_mark
+        self.counts_per_replay = {n: c.n_calls - marked.get(n, 0)
+                                  for n, c in COUNTERS.items()}
         self.clock = tracer.clock(self.label, marks,
-                                  grouped_wgrad2=self.wgrad2_per_replay)
+                                  counts=self.counts_per_replay)
         # building is not a call
-        logmel_kernel.n_launches, grouped_wgrad2.n_calls = count, terms
+        logmel_kernel.n_launches = count
+        for n, c in COUNTERS.items():
+            c.n_calls = counts.get(n, 0)
         if self.mutates:
             torch._foreach_copy_(self.mutates, saved)
         self.pool = graph.pool()
@@ -204,7 +211,8 @@ class GraphedProgram:
                 self.graph.replay()
             tracer.end(self.clock, rec, launch.ms)
         logmel_kernel.n_launches += self.launches_per_replay
-        grouped_wgrad2.n_calls += self.wgrad2_per_replay
+        for n, k in self.counts_per_replay.items():
+            COUNTERS[n].n_calls += k
         return self._outputs
 
     def __call__(self, *args):

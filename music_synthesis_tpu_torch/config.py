@@ -9,6 +9,12 @@ a TPU relayout of the same math (``MRDConfig.f_fold``,
 ``TrainConfig.concat_disc_batch``, ``use_pallas_frontend``'s interpret
 mode, ``mesh_*``) are kept so that those files load; the port computes
 the logical layer whatever they say.
+
+``VocoderConfig`` has two fields more than the JAX package's (``PORT_ONLY``:
+BigVGAN's generator, which the JAX package does not build). A section is
+written (``config_to_dict``, zoo cards) without those fields while they
+hold their defaults, so every config the JAX package can express is
+written as the JAX package writes it.
 """
 
 from __future__ import annotations
@@ -94,6 +100,12 @@ class VocoderConfig:
     head: str = "waveform"  # "waveform" | "istft"
     istft_n_fft: int = 16
     istft_hop: int = 4
+    # BigVGAN's generator (arXiv:2206.04658) with block "amp": after each
+    # upsampling the mean of AMP residual stacks, one per kernel of
+    # ``mrf_kernels``, each over ``res_dilations``, every activation the
+    # anti-aliased SnakeBeta (ops/alias_free.py), convolutions zero-padded.
+    block: str = "residual"  # "residual" | "amp"
+    mrf_kernels: Tuple[int, ...] = ()
 
     @property
     def hop_length(self) -> int:
@@ -246,6 +258,20 @@ E2E_INFERENCE_FAST = PipelineConfig(
     )
 )
 
+#: BigVGAN's 22 kHz 80-band generator (arXiv:2206.04658; NVIDIA/BigVGAN's
+#: ``configs/bigvgan_22khz_80band.json``; its upsampling kernels 8-8-4-4-4-4
+#: are the port's twice the factor): 112.2M parameters, trained
+#: against this repo's stage-2 D and losses (the port builds it; the JAX
+#: package does not).
+BIGVGAN_22K_80BAND = PipelineConfig(
+    frontend=FrontendConfig(n_mels=80, fmax=8000.0, power=1.0),
+    mel_scaler=MelScaler(shift=0.0, scale=1.0),
+    vocoder=VocoderConfig(
+        n_mels=80, base_channels=1536, upsample_factors=(4, 4, 2, 2, 2, 2),
+        res_dilations=(1, 3, 5), mrf_kernels=(3, 7, 11), block="amp"),
+    train=TrainConfig(batch_size=32, adam_b1=0.8, adam_b2=0.99),
+)
+
 #: Data-parallel two-stage training over eight devices.
 DP_V5E8_TRAIN = PipelineConfig(
     train=TrainConfig(batch_size=64, mesh_shape=(8,), mesh_axes=("data",))
@@ -256,18 +282,30 @@ _SECTIONS = {f.name: type(f.default)
              for f in dataclasses.fields(PipelineConfig)}
 
 
+#: Fields the port's sections have and the JAX package's do not.
+PORT_ONLY = {VocoderConfig: ("block", "mrf_kernels")}
+
+
+def _to_json(obj):
+    if isinstance(obj, (tuple, list)):
+        return [_to_json(x) for x in obj]
+    return obj
+
+
+def section_to_dict(section) -> dict:
+    """One section -> JSON-safe dict (tuples become lists), without the
+    ``PORT_ONLY`` fields that hold their defaults."""
+    own = PORT_ONLY.get(type(section), ())
+    return {f.name: _to_json(getattr(section, f.name))
+            for f in dataclasses.fields(section)
+            if f.name not in own or getattr(section, f.name) != f.default}
+
+
 def config_to_dict(cfg: PipelineConfig) -> dict:
-    """PipelineConfig -> JSON-safe nested dict (tuples become lists)."""
-
-    def conv(obj):
-        if dataclasses.is_dataclass(obj):
-            return {f.name: conv(getattr(obj, f.name))
-                    for f in dataclasses.fields(obj)}
-        if isinstance(obj, (tuple, list)):
-            return [conv(x) for x in obj]
-        return obj
-
-    return conv(cfg)
+    """PipelineConfig -> JSON-safe nested dict (``section_to_dict`` per
+    section)."""
+    return {f.name: section_to_dict(getattr(cfg, f.name))
+            for f in dataclasses.fields(cfg)}
 
 
 def section_from_dict(cls, d: dict):
@@ -332,5 +370,16 @@ TINY = PipelineConfig(
     stft_loss=STFTLossConfig(resolutions=((256, 64, 256), (512, 128, 512))),
     train=TrainConfig(batch_size=2, segment_length=2048),
     infer=InferConfig(chunk_frames=16, hop_frames=8),
+)
+
+#: TINY with a BigVGAN generator of BIGVGAN_22K_80BAND's structure (unit
+#: tests).
+TINY_BIGVGAN = dataclasses.replace(
+    TINY,
+    frontend=dataclasses.replace(BIGVGAN_22K_80BAND.frontend, n_mels=32),
+    mel_scaler=BIGVGAN_22K_80BAND.mel_scaler,
+    vocoder=dataclasses.replace(
+        BIGVGAN_22K_80BAND.vocoder, n_mels=32, base_channels=128,
+        res_dilations=(1, 3), mrf_kernels=(3, 5)),
 )
 

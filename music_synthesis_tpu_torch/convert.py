@@ -4,7 +4,8 @@ The port's modules carry the Flax module names and the JAX parameter
 layouts (``ops/conv.py``), so a tree converts by flattening its nested
 dict with ``.`` separators. The one layout that differs is ``nn.Dense``:
 Flax's ``kernel`` ``[in, out]`` becomes ``nn.Linear``'s ``weight``
-``[out, in]``. The input is a nested dict of numpy arrays, as
+``[out, in]``. BigVGAN's activations (``alpha``, ``beta``), which the JAX
+package does not have, pass through as they are. The input is a nested dict of numpy arrays, as
 ``_msgpack.restore`` or ``jax.tree.map(np.asarray, params)`` gives it;
 ``from_state_dict`` is the inverse, for writing Flax files.
 
@@ -21,6 +22,9 @@ import torch
 
 __all__ = ["flatten_params", "to_state_dict", "from_state_dict",
            "train_state_from_jax"]
+
+
+_LEAVES = ("bias", "v", "g", "b", "alpha", "beta")
 
 
 def flatten_params(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:
@@ -43,7 +47,7 @@ def to_state_dict(tree: Mapping[str, Any]) -> dict[str, torch.Tensor]:
         head, _, leaf = key.rpartition(".")
         if leaf == "kernel":  # nn.Dense
             sd[f"{head}.weight"] = t.T.contiguous()
-        elif leaf in ("bias", "v", "g", "b"):
+        elif leaf in _LEAVES:
             sd[key] = t
         else:
             raise ValueError(f"unexpected parameter {key!r}")
@@ -59,7 +63,7 @@ def from_state_dict(sd: Mapping[str, torch.Tensor]) -> dict[str, Any]:
         *path, leaf = key.split(".")
         if leaf == "weight":  # nn.Linear -> nn.Dense
             leaf, arr = "kernel", arr.T
-        elif leaf not in ("bias", "v", "g", "b"):
+        elif leaf not in _LEAVES:
             raise ValueError(f"unexpected parameter {key!r}")
         node = tree
         for p in path:

@@ -42,6 +42,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from music_synthesis_tpu_torch.utils.profiling import counter
+
 __all__ = ["GroupedConv", "WNConv", "WNConvTranspose1d", "avg_pool1d",
            "block_diagonal", "conv_transpose_padding", "grouped_wgrad2"]
 
@@ -49,18 +51,11 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 _aten = torch.ops.aten
 
 
-class _Count:
-    """A process-wide count, ``n_calls``."""
-
-    def __init__(self):
-        self.n_calls = 0
-
-
 #: Second-order weight terms issued as one grouped weight-gradient call
 #: (``_GroupedConvInputGrad.backward``): up by one per call here, and in
 #: ``_graphs.GraphedProgram`` by what its capture issued at each replay
 #: (the warm-up and the capture that build a graph are taken back out).
-grouped_wgrad2 = _Count()
+grouped_wgrad2 = counter("grouped_wgrad2")
 
 
 def _needed(ctx, n_inputs: int) -> list[bool]:
@@ -171,20 +166,32 @@ def _init_std(scheme: str, init_scale: float, fan_in: int,
     return gain * init_scale
 
 
-def _normalize(v: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """``g * v / ||v||`` with the norm over all axes but the last (Cout)."""
-    dims = tuple(range(v.ndim - 1))
-    norm = torch.sqrt(torch.sum(v * v, dim=dims) + 1e-12)
-    return v * (g / norm)
+def _norm(v: torch.Tensor, gain_axis: int,
+          keepdim: bool = False) -> torch.Tensor:
+    """``||v||`` over all axes but ``gain_axis``."""
+    axis = gain_axis % v.ndim
+    dims = tuple(i for i in range(v.ndim) if i != axis)
+    return torch.sqrt(torch.sum(v * v, dim=dims, keepdim=keepdim) + 1e-12)
+
+
+def _normalize(v: torch.Tensor, g: torch.Tensor,
+               gain_axis: int = -1) -> torch.Tensor:
+    """``g * v / ||v||`` with the norm over all axes but ``gain_axis``
+    (the last, Cout, by default), along which ``g`` lies."""
+    shape = [1] * v.ndim
+    shape[gain_axis] = -1
+    return v * (g.view(shape) / _norm(v, gain_axis, keepdim=True))
 
 
 class _WNBase(nn.Module):
-    """Holds ``v`` (and ``g``, ``b``) and computes the normalized kernel."""
+    """Holds ``v`` (and ``g``, ``b``) and computes the normalized kernel;
+    ``g`` lies along ``gain_axis`` of ``v`` (Cout, the last, by
+    default)."""
 
     def __init__(self, kshape: tuple[int, ...], fan_in: int, *,
                  use_weight_norm: bool, use_bias: bool, init_scale: float,
                  init_scheme: str, init_gain: float, compute_dtype: str,
-                 generator: torch.Generator | None):
+                 generator: torch.Generator | None, gain_axis: int = -1):
         super().__init__()
         if compute_dtype not in _DTYPES:
             raise ValueError(f"unsupported compute_dtype {compute_dtype!r}")
@@ -193,14 +200,15 @@ class _WNBase(nn.Module):
         v = torch.empty(kshape).normal_(0.0, std, generator=generator)
         self.v = nn.Parameter(v)
         self.use_weight_norm = use_weight_norm
+        self.gain_axis = gain_axis
         if use_weight_norm:
-            dims = tuple(range(v.ndim - 1))
-            self.g = nn.Parameter(torch.sqrt(torch.sum(v * v, dim=dims) + 1e-12))
+            self.g = nn.Parameter(_norm(v, gain_axis))
         self.b = nn.Parameter(torch.zeros(kshape[-1])) if use_bias else None
 
     def kernel(self) -> torch.Tensor:
         """The effective kernel in the JAX layout ``[K, Cin/groups, Cout]``."""
-        return _normalize(self.v, self.g) if self.use_weight_norm else self.v
+        return (_normalize(self.v, self.g, self.gain_axis)
+                if self.use_weight_norm else self.v)
 
     def _bias(self) -> torch.Tensor | None:
         return None if self.b is None else self.b.to(self.compute_dtype)
@@ -312,21 +320,26 @@ def conv_transpose_padding(kernel_size: int, stride: int) -> tuple[int, int]:
 
 class WNConvTranspose1d(_WNBase):
     """Transposed 1-D convolution ``[B, Cin, L] -> [B, Cout, L*stride]``,
-    equal to the reference's ``lax.conv_transpose(k, s, "SAME", HIO)``."""
+    equal to the reference's ``lax.conv_transpose(k, s, "SAME", HIO)``.
+    ``gain_per_input``: weight norm with one gain per input channel
+    (``g [Cin]``, the norm over the kernel and the outputs), as
+    ``torch.nn.utils.weight_norm``'s default (dim 0) normalises a
+    ``ConvTranspose1d``; else one per output channel."""
 
     def __init__(self, in_channels: int, features: int, kernel_size: int,
                  stride: int, *, use_weight_norm: bool = True,
                  use_bias: bool = True, init_scale: float = 0.02,
                  init_scheme: str = "dcgan", init_gain: float = 1.0,
                  compute_dtype: str = "float32",
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None,
+                 gain_per_input: bool = False):
         super().__init__(
             (kernel_size, in_channels, features),
             in_channels * max(kernel_size // stride, 1),
             use_weight_norm=use_weight_norm, use_bias=use_bias,
             init_scale=init_scale, init_scheme=init_scheme,
             init_gain=init_gain, compute_dtype=compute_dtype,
-            generator=generator)
+            generator=generator, gain_axis=1 if gain_per_input else -1)
         self.stride = stride
         self.torch_padding = conv_transpose_padding(kernel_size, stride)[1]
 

@@ -40,7 +40,12 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from music_synthesis_tpu_torch.config import TINY, PipelineConfig, TrainConfig
+from music_synthesis_tpu_torch.config import (
+    BIGVGAN_22K_80BAND,
+    TINY,
+    TINY_BIGVGAN,
+    PipelineConfig,
+)
 from music_synthesis_tpu_torch.parallel.dp import make_dp_stage2_step
 from music_synthesis_tpu_torch.parallel.mesh import shard_batch, shard_chunk
 from music_synthesis_tpu_torch.parallel.shard_map_dp import (
@@ -61,6 +66,11 @@ from music_synthesis_tpu_torch.train import stage2
 from music_synthesis_tpu_torch.utils.wav import write_wav
 
 
+#: ``--preset``'s base configurations.
+PRESETS = {"default": PipelineConfig(), "tiny": TINY,
+           "bigvgan": BIGVGAN_22K_80BAND, "tiny-bigvgan": TINY_BIGVGAN}
+
+
 def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="train_stage2",
                                  description=__doc__.split("\n\n")[0])
@@ -78,8 +88,11 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--pallas-frontend", action="store_true",
                     help="conditioning through the fused log-mel kernel")
     ap.add_argument("--resume", action="store_true")
-    ap.add_argument("--preset", choices=["default", "tiny"], default="default",
-                    help="'tiny' = small models for smoke runs / CPU")
+    ap.add_argument("--preset", choices=list(PRESETS), default="default",
+                    help="'tiny' = small models for smoke runs / CPU; "
+                         "'bigvgan' = BigVGAN's 22 kHz 80-band generator "
+                         "(config.BIGVGAN_22K_80BAND), 'tiny-bigvgan' its "
+                         "small twin")
     ap.add_argument("--head", choices=["waveform", "istft"], default="waveform",
                     help="vocoder output head")
     ap.add_argument("--grad-clip", type=float, default=0.0,
@@ -156,7 +169,7 @@ def parser() -> argparse.ArgumentParser:
 def config_from_args(args: argparse.Namespace) -> PipelineConfig:
     """The run's PipelineConfig, built from the flags as the JAX script
     builds it."""
-    base = TINY if args.preset == "tiny" else PipelineConfig()
+    base = PRESETS[args.preset]
     vocoder = base.vocoder
     if args.head == "istft":
         vocoder = dataclasses.replace(
@@ -182,8 +195,8 @@ def config_from_args(args: argparse.Namespace) -> PipelineConfig:
         mrd = dataclasses.replace(mrd, input_mode="complex")
     return dataclasses.replace(
         base, vocoder=vocoder, msd=msd, mrd=mrd,
-        train=TrainConfig(
-            batch_size=args.batch, segment_length=args.segment,
+        train=dataclasses.replace(
+            base.train, batch_size=args.batch, segment_length=args.segment,
             augment=args.augment, mesh_shape=(args.mesh,),
             use_pallas_frontend=args.pallas_frontend,
             grad_clip_norm=args.grad_clip, ema_decay=args.ema,

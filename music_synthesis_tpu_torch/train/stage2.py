@@ -26,7 +26,8 @@ two forwards give the same tensor). The step's phases are
 names (``record_function`` regions, and in the graph timing events that
 the tracer reads per replay under the label ``stage2_step``);
 ``generator_fwd_g`` holds only the instance noise added to that one
-forward's output. The host's work around a replay is in the spans
+forward's output; under a group each gradient's all-reduce is the region
+``grad_allreduce`` (two per step, D's and G's). The host's work around a replay is in the spans
 ``step.draws``, ``step.inputs``, ``graph.launch`` and ``step.read``.
 
 The conditioning mel is computed inside the step, with no gradient: with
@@ -353,7 +354,8 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
             metrics["d_r1"] = r1.detach()
         d_grads = list(torch.autograd.grad(d_loss, d_leaves))
         if group is not None:
-            d_grads = mesh.all_reduce_mean(d_grads, group)
+            with region("grad_allreduce"):
+                d_grads = mesh.all_reduce_mean(d_grads, group)
         d_grad_norm = global_norm(d_grads)
         d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
                                       state.d_opt, d_scalars)
@@ -407,7 +409,8 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
                 aux["g_phase"] = ph
         g_grads = list(torch.autograd.grad(total, g_leaves))
         if group is not None:
-            g_grads = mesh.all_reduce_mean(g_grads, group)
+            with region("grad_allreduce"):
+                g_grads = mesh.all_reduce_mean(g_grads, group)
         g_grad_norm = global_norm(g_grads)
         g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)),
                                        state.g_opt, g_scalars)

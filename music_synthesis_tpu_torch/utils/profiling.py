@@ -28,11 +28,12 @@ themselves, unprofiled:
   the host's time in ``graph.replay()`` (``launch_ms``), and the device's
   time between two eager events around the replay (``replay_ms``), with
   each region's ms. A label's counters (``captures``, ``replays``,
-  ``unread``, and ``grouped_wgrad2``: the second-order weight terms of
-  grouped convolutions its last capture issued, which each replay
-  repeats) and a ring of its last ``RING`` replays are
-  ``tracer.snapshot()``'s, with the process-wide count of those terms
-  (``ops.conv.grouped_wgrad2``) under ``counters``.
+  ``unread``, and each of ``COUNTERS``, the calls its last capture
+  issued, which each replay repeats: ``grouped_wgrad2``, the
+  second-order weight terms of grouped convolutions, and ``aa_act``, the
+  anti-aliased activations) and a ring of its last ``RING`` replays are
+  ``tracer.snapshot()``'s, with the process-wide counts under
+  ``counters``.
 - **The tracer never synchronises.** A replay's device times are read at
   the program's next replay, or when the tracer is read, and only when its
   end event says it has ended (``query``); a replay still running at its
@@ -64,12 +65,11 @@ from typing import Callable
 import torch
 from torch.profiler import ProfilerActivity, profile, record_function
 
-from music_synthesis_tpu_torch.ops import conv
-
 __all__ = ["trace", "device_events", "device_spans", "device_union",
            "device_busy", "time_fn",
            "step_regions", "region_split", "REGIONS", "OUTSIDE",
-           "TRACE_FILE", "region", "span", "capture_marks", "Clock",
+           "TRACE_FILE", "region", "span", "capture_marks", "current_capture",
+           "join_capture", "Count", "COUNTERS", "counter", "Clock",
            "Tracer", "tracer", "set_tracing", "medians", "RING"]
 
 #: Every region name either step can open (the JAX steps' scope names).
@@ -267,7 +267,7 @@ def region_split(trace_file: str | Path, names: list[str], calls: int = 1,
 #: Replays a label's ring keeps, and spans a name's ring keeps.
 RING = 1024
 
-_local = threading.local()  # .marks: the marks of this thread's capture
+_local = threading.local()  # .capture: this thread's _Capture, if any
 
 
 class _Mark:
@@ -280,6 +280,16 @@ class _Mark:
         self.name, self.depth, self.enter, self.exit = name, depth, enter, None
 
 
+class _Capture:
+    """The marks of one capture, in the order they open, and the depth of
+    the regions open now."""
+
+    __slots__ = ("marks", "depth")
+
+    def __init__(self, marks: list):
+        self.marks, self.depth = marks, 0
+
+
 def _timing_event():
     return torch.cuda.Event(enable_timing=True)
 
@@ -289,18 +299,18 @@ def region(name: str):
     """``record_function(name)``; inside ``capture_marks`` also a timing
     event recorded at the enter and the exit (``external``: nodes of the
     graph being captured, recorded again at every replay)."""
-    marks = getattr(_local, "marks", None)
+    cap = getattr(_local, "capture", None)
     with record_function(name):
-        if marks is None:
+        if cap is None:
             yield
             return
-        mark = _Mark(name, _local.depth, torch.cuda.Event(
+        mark = _Mark(name, cap.depth, torch.cuda.Event(
             enable_timing=True, external=True))
-        marks.append(mark)
+        cap.marks.append(mark)
         mark.enter.record()
-        _local.depth += 1
+        cap.depth += 1
         yield
-        _local.depth -= 1
+        cap.depth -= 1
         mark.exit = torch.cuda.Event(enable_timing=True, external=True)
         mark.exit.record()
 
@@ -308,15 +318,37 @@ def region(name: str):
 @contextlib.contextmanager
 def capture_marks():
     """Collects, in the order they open, the marks that ``region`` records
-    in this thread within the block (a graph's capture); yields their list,
-    which stays empty while tracing is off."""
+    in this thread within the block (a graph's capture), and in any thread
+    that joins it (``join_capture``); yields their list, which stays empty
+    while tracing is off."""
     marks: list[_Mark] = []
     if tracer.on:
-        _local.marks, _local.depth = marks, 0
+        _local.capture = _Capture(marks)
     try:
         yield marks
     finally:
-        _local.marks = None
+        _local.capture = None
+
+
+def current_capture():
+    """This thread's capture of marks (None outside one), for a thread
+    that works for it to ``join_capture``."""
+    return getattr(_local, "capture", None)
+
+
+@contextlib.contextmanager
+def join_capture(capture):
+    """Within the block, this thread's regions are marks of ``capture``
+    (from ``current_capture``; nothing when None): autograd runs a
+    function's backward on a thread of its own while the capturing thread
+    waits for it."""
+    saved = getattr(_local, "capture", None)
+    if capture is not None:
+        _local.capture = capture
+    try:
+        yield
+    finally:
+        _local.capture = saved
 
 
 class span:
@@ -345,12 +377,29 @@ class span:
             tracer.add_span(self.name, self._t0, t1)
 
 
+class Count:
+    """A process-wide count, ``n_calls``."""
+
+    def __init__(self):
+        self.n_calls = 0
+
+
+#: The counts of calls that a graph's capture issues and each replay
+#: repeats (``_graphs.GraphedProgram`` keeps them per replay), by name.
+COUNTERS: dict[str, Count] = {}
+
+
+def counter(name: str) -> Count:
+    """The process-wide ``Count`` registered under ``name``."""
+    return COUNTERS.setdefault(name, Count())
+
+
 class _Log:
     """One label's counters and its ring of replay records."""
 
     def __init__(self, ring: int):
         self.captures = self.replays = self.unread = 0
-        self.grouped_wgrad2 = 0
+        self.counts: dict[str, int] = {}
         self.records: collections.deque = collections.deque(maxlen=ring)
 
 
@@ -388,14 +437,14 @@ class Tracer:
         return log
 
     def clock(self, label: str, marks=(), event=_timing_event,
-              grouped_wgrad2: int = 0) -> Clock:
+              counts: dict[str, int] | None = None) -> Clock:
         """A new program's clock; counts a capture of ``label``, which
-        issued ``grouped_wgrad2`` second-order weight terms."""
+        issued ``counts`` calls of the ``COUNTERS`` named."""
         if self.on:
             with self._lock:
                 log = self._log(label)
                 log.captures += 1
-                log.grouped_wgrad2 = grouped_wgrad2
+                log.counts = dict(counts or {})
         return Clock(label, marks, event)
 
     def _settle(self, clock: Clock) -> bool:
@@ -460,10 +509,10 @@ class Tracer:
         ring.append((t0_ns, t1_ns))
 
     def snapshot(self) -> dict:
-        """``{"programs": {label: {"captures", "replays", "unread",
-        "grouped_wgrad2", "records"}}, "spans": {name: [(start_ns, end_ns),
-        ...]}, "counters": {"grouped_wgrad2": n}}``, copies; first reads
-        the device times of every replay that has ended."""
+        """``{"programs": {label: {"captures", "replays", "unread", each
+        of ``COUNTERS`` (per capture), "records"}}, "spans": {name:
+        [(start_ns, end_ns), ...]}, "counters": {name: n}}``, copies; first
+        reads the device times of every replay that has ended."""
         with self._lock:
             for clock in list(self._pending):
                 self._settle(clock)
@@ -471,12 +520,12 @@ class Tracer:
                 "programs": {
                     label: {"captures": log.captures, "replays": log.replays,
                             "unread": log.unread,
-                            "grouped_wgrad2": log.grouped_wgrad2,
+                            **{n: log.counts.get(n, 0) for n in COUNTERS},
                             "records": [{**r, "region_ms": dict(
                                 r["region_ms"])} for r in log.records]}
                     for label, log in self._logs.items()},
                 "spans": {n: list(r) for n, r in self._spans.items()},
-                "counters": {"grouped_wgrad2": conv.grouped_wgrad2.n_calls}}
+                "counters": {n: c.n_calls for n, c in COUNTERS.items()}}
 
     def reset(self) -> None:
         """Forgets every counter, record and span."""

@@ -28,6 +28,7 @@ from music_synthesis_tpu_torch.config import (
     SpecGANConfig,
     VocoderConfig,
     section_from_dict,
+    section_to_dict,
 )
 from music_synthesis_tpu_torch.convert import from_state_dict, to_state_dict
 
@@ -85,7 +86,7 @@ def save_pretrained(name: str, kind: str, params: dict[str, torch.Tensor],
         _msgpack.to_bytes(from_state_dict(params)))
 
     def asdict(c):
-        return dataclasses.asdict(c) if c is not None else None
+        return section_to_dict(c) if c is not None else None
 
     card = {"name": name, "kind": kind,
             "n_params": sum(int(t.numel()) for t in params.values()),

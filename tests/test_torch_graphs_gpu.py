@@ -23,7 +23,11 @@ warmup gate: graphed against eager within the same tolerances, one
 log-mel launch per replay. The graphed stage-2 step of the benchmark's
 flagship and rich configurations: 6 second-order weight terms of grouped
 convolutions per capture and replay in the flagship's (R1), none in
-rich's. The same flagship step under a one-rank NCCL
+rich's; BigVGAN's 109 anti-aliased activations per capture and replay,
+each timed in every replay (``aa_act.fwd``, ``aa_act.bwd``), and none in
+rich's. The stage-2 shard_map step over four NCCL ranks on four cards
+(skipped with fewer) against the single-process step on the
+concatenated batch. The same flagship step under a one-rank NCCL
 group in this process (a real ``ProcessGroupNCCL``, whose collectives the
 step's graph captures), both ``dp`` modes, graphed against eager within
 the same tolerances. Sequence-sharded vocoding over ``[cuda, cuda]``, one
@@ -53,6 +57,7 @@ from music_synthesis_tpu_torch.infer.copy_synthesis import copy_synthesis
 from music_synthesis_tpu_torch.infer.stream import make_stream_fns
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
+from music_synthesis_tpu_torch.ops.alias_free import aa_act
 from music_synthesis_tpu_torch.ops.conv import grouped_wgrad2
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 from music_synthesis_tpu_torch.train import stage1, stage2
@@ -552,6 +557,86 @@ def test_graphed_stage2_step_counts_second_order_weight_terms(cuda, tracing,
     snap = tracing.snapshot()
     assert snap["programs"]["stage2_step"]["grouped_wgrad2"] == terms
     assert snap["counters"]["grouped_wgrad2"] == grouped_wgrad2.n_calls
+
+
+@pytest.mark.parametrize("name,acts", [("bigvgan", 109), ("rich", 0)])
+def test_graphed_stage2_step_counts_anti_aliased_activations(cuda, tracing,
+                                                             name, acts):
+    """BigVGAN's capture issues one anti-aliased SnakeBeta per activation
+    of its G (109 at the published widths), each with its regions
+    ``aa_act.fwd`` and ``aa_act.bwd`` in every replay's record; rich's
+    none. Each replay adds them to the process-wide count."""
+    raw = json.loads((REPO / "benchmark" / "configs" / f"{name}.json"
+                      ).read_text())
+    cfg = config.config_from_dict(raw["train"])
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=2))
+    state = stage2.make_train_state(cfg, seed=0, device=cuda)
+    wav = _wav((2, cfg.train.segment_length), cuda)
+    state, _ = stage2.train_step(cfg, state, wav)  # builds, then replays
+    before = aa_act.n_calls
+    for _ in range(2):
+        state, _ = stage2.train_step(cfg, state, wav)
+    assert aa_act.n_calls - before == 2 * acts
+    snap = tracing.snapshot()
+    log = snap["programs"]["stage2_step"]
+    assert log["aa_act"] == acts
+    assert snap["counters"]["aa_act"] == aa_act.n_calls
+    ms = log["records"][-1]["region_ms"]
+    for region in ("aa_act.fwd", "aa_act.bwd"):
+        assert (ms.get(region, 0.0) > 0) == (acts > 0), ms
+    if acts:
+        assert ms["g_step"] > ms["aa_act.bwd"]
+
+
+def test_stage2_shard_map_step_over_four_nccl_ranks(cuda, tmp_path):
+    """The stage-2 ``--dp shard_map`` step on four NCCL ranks, one card
+    each, every rank replaying its graph (all-reduces captured), against
+    the single-process step on the concatenated batch with the ranks'
+    draws concatenated: the tolerances of ``test_torch_gpu``'s two-rank
+    test (``g_rms_ratio``, the mean of the shards' ratios, left out)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    import torch_dp_ref
+    from music_synthesis_tpu_torch.parallel import mesh
+    from music_synthesis_tpu_torch.train.checkpoint import save_checkpoint
+    from test_torch_gpu import _he_gain_d
+
+    cfg = dataclasses.replace(config.TINY, train=dataclasses.replace(
+        config.TINY.train, batch_size=4, use_pallas_frontend=True,
+        d_input_noise=0.1, r1_gamma=1.0, ema_decay=0.999,
+        concat_disc_batch=True))
+    wav = _wav((4, 2048), "cpu").numpy()
+    rng = np.random.default_rng(3)
+    noise = [rng.standard_normal((4, 2048)).astype(np.float32)
+             for _ in range(3)]
+    st = stage2.make_train_state(cfg, seed=0, device=cuda)
+    # D's logits away from 0 and Adam's second moments at 1, as the
+    # two-rank test prepares its state (at init the logits and so g_adv
+    # sit near 0, where a relative tolerance reads rounding).
+    st = dataclasses.replace(st, d_params=_he_gain_d(
+        st.d_params, 4, {"msd": 0.2, "mrd": 1e-3}), d_opt=dataclasses.replace(
+        st.d_opt, nu={k: torch.ones_like(v) for k, v in st.d_opt.nu.items()}))
+    save_checkpoint(tmp_path / "st.pt", st)
+    data = [[(wav[r:r + 1], None, [n[r:r + 1] for n in noise])]
+            for r in range(4)]
+    ranks = mesh.launch(torch_dp_ref.run_jobs, 4, ([{
+        "kind": "train", "args": dict(stage=2, cfg=cfg,
+                                      state_path=str(tmp_path / "st.pt"),
+                                      dp="shard_map", data=data,
+                                      device="cuda")}],),
+        backend="nccl", devices=[f"cuda:{r}" for r in range(4)])
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        _, want = stage2.train_step(cfg, st, wav, noise=noise,
+                                    precision="exact")
+    got = [r[0]["metrics"][0] for r in ranks]
+    assert all(g == got[0] for g in got)
+    tol = {k: 5e-5 for k in ("d_loss", "g_loss", "g_adv", "g_fm", "g_stft",
+                             "d_r1")}
+    tol.update(d_grad_norm=3e-4, g_grad_norm=3e-4)
+    for k, rtol in tol.items():
+        assert abs(got[0][k] - want[k]) <= rtol * abs(want[k]), (
+            k, got[0][k], want[k])
 
 
 def _stage2_run(cfg, cuda, on: bool):

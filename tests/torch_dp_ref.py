@@ -147,7 +147,10 @@ KINDS = {"train": train, "many": many, "many_in_place": many_in_place,
          "loss_grads": loss_grads}
 
 
-def run_jobs(jobs: list[dict]) -> list:
-    """Each job's result, in order (the function a group of ranks runs)."""
-    return [KINDS[job["kind"]](**job["args"]) for job in jobs]
+def run_jobs(jobs: list[dict], row_invariant: bool = False) -> list:
+    """Each job's result, in order (the function a group of ranks runs).
+    ``row_invariant``: with oneDNN off, as ``test_torch_parallel`` runs
+    its single-process steps (that module's docstring says why)."""
+    with torch.backends.mkldnn.flags(enabled=not row_invariant):
+        return [KINDS[job["kind"]](**job["args"]) for job in jobs]
 
