@@ -7,7 +7,9 @@
     python3 chip_smoke.py --kernel-times [--tree DIR]
                                          # the log-mel kernel of the
                                          # checkout DIR (default: this one):
-                                         # errors and times, one JSON line
+                                         # errors and times, and the
+                                         # anti-aliased SnakeBeta kernel's
+                                         # times: one JSON line
 
 Drives ``music_synthesis_tpu_torch`` through the entry points a user calls,
 at the flagship's full width with the committed zoo weights, in phases:
@@ -211,7 +213,16 @@ at the flagship's full width with the committed zoo weights, in phases:
    distance, ``generate_long`` of 8 patches, 6 interpolated clips and the
    drifting walk): shapes, finite outputs, no log-mel launch, the clips
    bit for bit with ``generate`` run eagerly; seconds per cell;
-11. the ``kernels`` JSON line (printed after phase 16).
+17. the anti-aliased SnakeBeta kernel (``csrc/aa_act.cu``, main path of
+   BigVGAN's G): ``aa_snake_beta`` forward and backward at
+   ``AA_ACT_SHAPES`` (BigVGAN's six at batch 32) in bf16, y, x's, alpha's
+   and beta's gradients against the plain version in float64 on the same
+   inputs within the card test's bounds (``AA_ACT_FP32_FACTOR``, ...); the
+   kernels' device-only times beside their bounds from bytes and the plain
+   version's (``aa_act_times``); and one replay of a graphed BigVGAN
+   stage-2 step (batch 2, published widths), its launch counts set to 0
+   just before: 109 activations and 327 kernel launches;
+11. the ``kernels`` JSON line (printed after phase 17).
 
 On the card the entry points replay CUDA graphs (``_graphs.py``): phases
 3-4 (copy-synthesis, serving), 5, 6 (the single-process stage-2 step and
@@ -230,7 +241,7 @@ count no kernel launch; each replay counts the launches its capture
 recorded.
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
-and again around each of phases 6, 7, 8, 9, 10, 14, 15 and 16 (and around phase
+and again around each of phases 6, 7, 8, 9, 10, 14, 15, 16 and 17 (and around phase
 10's ``eval_checkpoint --run``) and around phase 13's ``extract_features``
 and ``eval_stage1``; phase 12's ranks read theirs around their steps.
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -701,7 +712,220 @@ def kernel_times(seed: int) -> dict:
             times[str(list(shape))] = row
     return {"package": str(Path(L.__file__).resolve().parents[1]),
             "build_s": built.seconds, "ptxas": list(built.ptxas),
-            "worst": worst, "times": times, "card": card_name_and_power()}
+            "worst": worst, "times": times, "aa_act": aa_act_times(seed),
+            "card": card_name_and_power()}
+
+
+# BigVGAN's six anti-aliased SnakeBeta shapes at the benchmark's batch.
+AA_ACT_SHAPES = ((32, 768, 128), (32, 384, 512), (32, 192, 1024),
+                 (32, 96, 2048), (32, 48, 4096), (32, 24, 8192))
+# The inputs x of the sets a timed call cycles through, at least: twice the
+# H100's 50 MB L2, so that each call finds its data cold.
+AA_ACT_COLD_BYTES = 100e6
+
+
+def aa_act_times(seed: int) -> dict | None:
+    """The anti-aliased SnakeBeta kernel (``csrc/aa_act.cu``) of the
+    importable package at ``AA_ACT_SHAPES`` in bf16: device-only times
+    (``graph_time_ms``) of the forward and the backward (x's, alpha's and
+    beta's gradients, the sums' launch included), each beside its least
+    time from bytes at 3.35 TB/s (forward: x read, y written; backward: x
+    and gy read, gx written) and beside the plain version's time (the
+    backward's: its recompute and autograd). Each call reads another of
+    several input sets, together over ``AA_ACT_COLD_BYTES``. None when the
+    package has no such kernel."""
+    from music_synthesis_tpu_torch import _build
+    from music_synthesis_tpu_torch.ops import alias_free as af
+
+    if not hasattr(af, "aa_act_kernel"):
+        return None
+    built = _build.build("aa_act")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows = {}
+    for shape in AA_ACT_SHAPES:
+        n = int(np.prod(shape))
+        n_sets = max(1, int(np.ceil(AA_ACT_COLD_BYTES / (2 * n))))
+        sets = [tuple(torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2)) for _ in range(n_sets)]
+        a, b = (0.3 * torch.randn(shape[1], generator=gen, device="cuda")
+                for _ in range(2))
+        turn = iter(range(10 ** 9))
+
+        def pick():
+            return sets[next(turn) % n_sets]
+
+        def backward():
+            x, gy = pick()
+            return af._backward_cuda(x, a, b, gy, (True, True, True))
+
+        def plain_backward():
+            x, gy = pick()
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (x, a, b)]
+                y = af._forward(*leaves)
+                return torch.autograd.grad(y, leaves, gy.float())
+
+        calls = {
+            "fwd": lambda: af._forward_cuda(pick()[0], a, b),
+            "bwd": backward,
+            "plain_fwd": lambda: af._forward(pick()[0], a, b).to(
+                torch.bfloat16),
+            "plain_bwd": plain_backward}
+        row = {f"{k}_ms": graph_time_ms(fn) for k, fn in calls.items()}
+        row["fwd_bound_ms"] = 2 * 2 * n / PEAK_BYTES_PER_S * 1e3
+        row["bwd_bound_ms"] = 3 * 2 * n / PEAK_BYTES_PER_S * 1e3
+        for k in ("fwd", "bwd"):
+            row[f"{k}_roofline"] = row[f"{k}_bound_ms"] / row[f"{k}_ms"]
+        t = af.tiling(shape[0] * shape[1], shape[2], af._n_sm(a.device))
+        row["tiles"] = [t.rows_per_block, t.span, t.blocks]
+        rows[str(list(shape))] = row
+        log(f"[aa_act] {list(shape)} bf16, device only: forward "
+            f"{row['fwd_ms']:.4f} ms (bound {row['fwd_bound_ms']:.4f}, "
+            f"{row['fwd_roofline']:.3f}; plain {row['plain_fwd_ms']:.4f}), "
+            f"backward {row['bwd_ms']:.4f} ms (bound "
+            f"{row['bwd_bound_ms']:.4f}, {row['bwd_roofline']:.3f}; plain "
+            f"{row['plain_bwd_ms']:.4f}); tiles {row['tiles']}")
+    return {"build_s": built.seconds, "ptxas": list(built.ptxas),
+            "shapes": rows}
+
+
+# tests/test_torch_aa_act_gpu.py's bounds: the kernel's max abs error may be
+# this many times the plain version's in fp32 (both against float64), plus
+# AA_ACT_FP32_FLOOR of the largest magnitude; a bf16 output also half a
+# bf16 unit of its value, elementwise.
+AA_ACT_FP32_FACTOR, AA_ACT_FP32_FLOOR, AA_ACT_BF16_HALF_UNIT = 4.0, 1e-6, 2.0 ** -8
+
+
+def aa_act_errors(seed: int) -> dict:
+    """``aa_snake_beta`` (the public wrapper, so the kernel launched as
+    the model launches it) forward and backward at ``AA_ACT_SHAPES`` in
+    bf16: y and the gradients of x, alpha and beta against the plain
+    version evaluated in float64 on the same inputs (cuDNN's TF32 off),
+    each within its bound (``AA_ACT_FP32_FACTOR``); per shape and output
+    the max abs error and its bound."""
+    from music_synthesis_tpu_torch.ops import alias_free as af
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, worst = {}, 0.0
+    for shape in AA_ACT_SHAPES:
+        x, gy = (torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16) for _ in range(2))
+        a, b = (0.3 * torch.randn(shape[1], generator=gen, device="cuda")
+                for _ in range(2))
+
+        def plain(dtype):
+            leaves = [t.detach().to(dtype).requires_grad_() for t in (x, a, b)]
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                y = af._forward(*leaves)
+                grads = torch.autograd.grad(y, leaves, gy.to(dtype))
+            return [y.detach(), *grads]
+
+        want, fp32 = plain(torch.float64), plain(torch.float32)
+        before = af.aa_act_kernel.n_calls
+        leaves = [t.detach().requires_grad_() for t in (x, a, b)]
+        y = af.aa_snake_beta(*leaves)
+        got = [y.detach(), *torch.autograd.grad(y, leaves, gy)]
+        torch.cuda.synchronize()
+        check(af.aa_act_kernel.n_calls - before == 3,
+              f"aa_snake_beta at {list(shape)} did not launch the kernel "
+              f"three times (forward, backward, sums)")
+        row = {}
+        for name, g, p, w in zip(("y", "gx", "ga", "gb"), got, fp32, want):
+            err = float((g.double() - w).abs().max())
+            tol = (AA_ACT_FP32_FACTOR * float((p.double() - w).abs().max())
+                   + AA_ACT_FP32_FLOOR * float(w.abs().max()))
+            if name in ("y", "gx"):
+                over = float(((g.double() - w).abs() - AA_ACT_BF16_HALF_UNIT
+                              * w.abs() - 2 * tol).max())
+            else:
+                over = err - tol
+            check(bool(torch.isfinite(g).all()) and over <= 0,
+                  f"aa_snake_beta's {name} at {list(shape)} bf16 is off the "
+                  f"plain version by {err:.3g} (over its bound by {over:.3g})")
+            row[name] = {"max_abs_err": err, "fp32_tol": tol}
+            worst = max(worst, err)
+        rows[str(list(shape))] = row
+        log(f"[aa_act] {list(shape)} bf16 against float64: " + ", ".join(
+            f"{k} {v['max_abs_err']:.3g} (fp32 tol {v['fp32_tol']:.3g})"
+            for k, v in row.items()))
+    return {"max_abs_err": worst, "shapes": rows}
+
+
+def aa_act_step_launches(rng: np.random.Generator) -> dict:
+    """One replay of the graphed stage-2 step of ``BIGVGAN_22K_80BAND`` at
+    batch 2 (the published widths): the activation's calls and its kernel's
+    launches, both counts set to 0 just before the replay."""
+    from music_synthesis_tpu_torch import config
+    from music_synthesis_tpu_torch.ops import alias_free as af
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.state import drop_graphed_steps
+
+    base = config.BIGVGAN_22K_80BAND
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, batch_size=2))
+    state = stage2.make_train_state(cfg, seed=DEFAULT_PATH_SEED,
+                                    device="cuda")
+    wav = torch.from_numpy(test_audio(rng, 2, cfg.train.segment_length,
+                                      cfg.frontend.sample_rate)).cuda()
+    state, _ = stage2.train_step(cfg, state, wav)  # builds the graph
+    af.aa_act.n_calls = af.aa_act_kernel.n_calls = 0
+    state, metrics = stage2.train_step(cfg, state, wav)
+    out = {"acts": af.aa_act.n_calls, "launches": af.aa_act_kernel.n_calls,
+           "finite": all(np.isfinite(v) for v in metrics.values())}
+    del state
+    drop_graphed_steps()
+    torch.cuda.empty_cache()
+    log(f"[aa_act] one graphed BigVGAN step (batch 2): {out['acts']} "
+        f"activations, {out['launches']} kernel launches")
+    check(out["acts"] == 109 and out["launches"] == 3 * 109
+          and out["finite"],
+          "a graphed BigVGAN step did not launch the activation's kernel "
+          "three times for each of its 109 activations")
+    return out
+
+
+def phase_aa_act(rng: np.random.Generator, seed: int) -> dict:
+    """Phase 17: the anti-aliased SnakeBeta kernel against the plain
+    version, its times, and its launches in a graphed BigVGAN step."""
+    errors = aa_act_errors(seed)
+    times = aa_act_times(seed)
+    step = aa_act_step_launches(rng)
+    return {"errors": errors, "times": times, "step": step}
+
+
+def aa_act_kernel_entry(aa: dict) -> dict:
+    """The ``kernels`` line's entry of ``csrc/aa_act.cu`` from phase 17:
+    times at the largest row count's shape, [32, 24, 8192] (forward plus
+    backward, device only), errors over every shape."""
+    shape = str(list(AA_ACT_SHAPES[-1]))
+    t = aa["times"]["shapes"][shape]
+    return {
+        "name": "aa_act",
+        "route": "cuda",
+        "source": "music_synthesis_tpu_torch/csrc/aa_act.cu",
+        "replaces": None,
+        "launches": aa["step"]["launches"],
+        "max_abs_err": aa["errors"]["max_abs_err"],
+        "ms": t["fwd_ms"] + t["bwd_ms"],
+        "plain_ms": t["plain_fwd_ms"] + t["plain_bwd_ms"],
+        "bound_ms": t["fwd_bound_ms"] + t["bwd_bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "ok": True,
+        "path": "one launch forward; backward and the parameters' sums",
+        "shape": list(AA_ACT_SHAPES[-1]),
+        "dtype": "bfloat16",
+        "launches_by_path": {"bigvgan_train_step_replay":
+                             aa["step"]["launches"]},
+        "by_shape": {k: {**{n: v[n] for n in (
+            "fwd_ms", "bwd_ms", "plain_fwd_ms", "plain_bwd_ms",
+            "fwd_bound_ms", "bwd_bound_ms")},
+            "max_abs_err": max(e["max_abs_err"] for e in
+                               aa["errors"]["shapes"][k].values())}
+            for k, v in aa["times"]["shapes"].items()},
+        "build_s": aa["times"]["build_s"],
+        "ptxas": aa["times"]["ptxas"],
+    }
 
 
 def phase_copy_synthesis(rng: np.random.Generator) -> dict:
@@ -3452,7 +3676,8 @@ def main() -> int:
     ap.add_argument("--cpu-gaps", action="store_true",
                     help="print the CPU's bf16-vs-fp32 gaps (CPU_GAPS) and exit")
     ap.add_argument("--kernel-times", action="store_true",
-                    help="print the log-mel kernel's errors and times "
+                    help="print the log-mel kernel's errors and times and "
+                         "the anti-aliased SnakeBeta kernel's times "
                          "(kernel_times) as one JSON line and exit")
     ap.add_argument("--tree", type=Path, default=None,
                     help="with --kernel-times: the checkout whose package is "
@@ -3603,6 +3828,9 @@ def main() -> int:
     check(launches["notebook"] == 0, "the notebook launched the log-mel "
           "kernel (its path starts from latents)")
 
+    banner("phase 17: the anti-aliased SnakeBeta kernel (main path)")
+    aa = phase_aa_act(rng, args.seed)
+
     banner("phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
@@ -3663,7 +3891,7 @@ def main() -> int:
                                  by_scenario["bench_frontend_ab"],
                              "cuda_graphs": launches["cuda_graphs"],
                              "notebook": launches["notebook"]},
-    }]}
+    }, aa_act_kernel_entry(aa)]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
                "serve_card_vs_cpu_err": serve_err,
@@ -3679,6 +3907,7 @@ def main() -> int:
                "benchmark": benchmark,
                "cuda_graphs": graphs,
                "notebook": notebook,
+               "aa_act": aa,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

@@ -130,6 +130,49 @@ def test_op_saves_only_its_inputs():
         gx.sum().backward()
 
 
+#: BigVGAN's six activation shapes at the benchmark's batch of 32.
+BIGVGAN_SHAPES = [(32, 768, 128), (32, 384, 512), (32, 192, 1024),
+                  (32, 96, 2048), (32, 48, 4096), (32, 24, 8192)]
+H100_SMS = 132
+
+
+@pytest.mark.parametrize("shape", BIGVGAN_SHAPES + [
+    (2, 3, 1), (2, 3, 2), (2, 3, 7), (2, 3, 129)])
+def test_kernel_tiling_covers_every_output_once(monkeypatch, shape):
+    """The CUDA kernel's grid (``alias_free.tiling``, which the wrapper
+    hands the kernel: ``n_col`` and ``blocks``, the blocks' own arithmetic
+    in ``Tiling.block``) writes every output sample of every row exactly
+    once, from blocks that each hold at least one, and each (row, span)
+    pair of the backward's parameter partials once; its spans are whole
+    groups of 8 and its rows fit the shared memory budget; at batch 32
+    each shape gives every SM of an H100 at least 4 blocks."""
+    batch, channels, length = shape
+    rows = batch * channels
+    t = alias_free.tiling(rows, length, H100_SMS)
+    assert t.span % 8 == 0 and t.span >= 8 and t.rows_per_block >= 1
+    assert t.rows_per_block * (t.span + alias_free._HALO) \
+        <= alias_free._TILE_WORDS
+    seen = np.zeros((rows, length), np.int32)
+    partial = np.zeros((rows, t.n_col), np.int32)
+    for i in range(t.blocks):
+        r0, nr, t0, tn = t.block(i)
+        assert nr >= 1 and tn >= 1 and nr <= t.rows_per_block \
+            and tn <= t.span and t0 % t.span == 0
+        seen[r0:r0 + nr, t0:t0 + tn] += 1
+        partial[r0:r0 + nr, t0 // t.span] += 1
+    assert (seen == 1).all() and (partial == 1).all()
+    assert t.partial_words == 2 * partial.size
+    monkeypatch.setattr(alias_free, "_n_sm", lambda device: H100_SMS)
+    got, args = alias_free._launch_args(torch.empty(shape,
+                                                    dtype=torch.bfloat16))
+    assert got == t
+    assert args[1:8] == (batch, channels, length, t.rows_per_block, t.span,
+                         t.n_col, t.blocks)
+    if batch == 32:
+        assert t.blocks >= 4 * H100_SMS
+        assert 1024 <= t.rows_per_block * min(t.span, length) <= 2048
+
+
 def test_generator_output_and_every_gradient():
     sd = _params()
     port, plain = _models(sd)

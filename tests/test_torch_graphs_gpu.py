@@ -24,8 +24,9 @@ log-mel launch per replay. The graphed stage-2 step of the benchmark's
 flagship and rich configurations: 6 second-order weight terms of grouped
 convolutions per capture and replay in the flagship's (R1), none in
 rich's; BigVGAN's 109 anti-aliased activations per capture and replay,
-each timed in every replay (``aa_act.fwd``, ``aa_act.bwd``), and none in
-rich's. The stage-2 shard_map step over four NCCL ranks on four cards
+each timed in every replay (``aa_act.fwd``, ``aa_act.bwd``) and each
+three launches of its kernel, and none in rich's. The stage-2 shard_map
+step over four NCCL ranks on four cards
 (skipped with fewer) against the single-process step on the
 concatenated batch. The same flagship step under a one-rank NCCL
 group in this process (a real ``ProcessGroupNCCL``, whose collectives the
@@ -57,7 +58,7 @@ from music_synthesis_tpu_torch.infer.copy_synthesis import copy_synthesis
 from music_synthesis_tpu_torch.infer.stream import make_stream_fns
 from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
-from music_synthesis_tpu_torch.ops.alias_free import aa_act
+from music_synthesis_tpu_torch.ops.alias_free import aa_act, aa_act_kernel
 from music_synthesis_tpu_torch.ops.conv import grouped_wgrad2
 from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 from music_synthesis_tpu_torch.train import stage1, stage2
@@ -564,8 +565,10 @@ def test_graphed_stage2_step_counts_anti_aliased_activations(cuda, tracing,
                                                              name, acts):
     """BigVGAN's capture issues one anti-aliased SnakeBeta per activation
     of its G (109 at the published widths), each with its regions
-    ``aa_act.fwd`` and ``aa_act.bwd`` in every replay's record; rich's
-    none. Each replay adds them to the process-wide count."""
+    ``aa_act.fwd`` and ``aa_act.bwd`` in every replay's record, and three
+    launches of the activation's kernel per activation (the forward, the
+    backward and its parameter sums); rich's none. Each replay adds them
+    to the process-wide counts."""
     raw = json.loads((REPO / "benchmark" / "configs" / f"{name}.json"
                       ).read_text())
     cfg = config.config_from_dict(raw["train"])
@@ -575,13 +578,17 @@ def test_graphed_stage2_step_counts_anti_aliased_activations(cuda, tracing,
     wav = _wav((2, cfg.train.segment_length), cuda)
     state, _ = stage2.train_step(cfg, state, wav)  # builds, then replays
     before = aa_act.n_calls
+    launched = aa_act_kernel.n_calls
     for _ in range(2):
         state, _ = stage2.train_step(cfg, state, wav)
     assert aa_act.n_calls - before == 2 * acts
+    assert aa_act_kernel.n_calls - launched == 2 * 3 * acts
     snap = tracing.snapshot()
     log = snap["programs"]["stage2_step"]
     assert log["aa_act"] == acts
+    assert log["aa_act_kernel"] == 3 * acts
     assert snap["counters"]["aa_act"] == aa_act.n_calls
+    assert snap["counters"]["aa_act_kernel"] == aa_act_kernel.n_calls
     ms = log["records"][-1]["region_ms"]
     for region in ("aa_act.fwd", "aa_act.bwd"):
         assert (ms.get(region, 0.0) > 0) == (acts > 0), ms
