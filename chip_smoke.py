@@ -193,7 +193,7 @@ at the flagship's full width with the committed zoo weights, in phases:
    calls on the same input (the card's own run-to-run gap); five graphed
    stage-1 steps from one state must match five eager ones within
    ``STAGE1_TOL``, printed beside two eager runs' gap; 10 replays of the
-   copy-synthesis graph must raise ``logmel_kernel.n_launches`` by 10;
+   copy-synthesis graph must raise ``logmel_launches.n_calls`` by 10;
    and the stage-2 flagship step at [16, 8192] (bf16, ``flagship_config``,
    zoo G, seeded D; ``stage2_graphs``): 3 steps inside the warmup gate and
    3 past it, graphed against two eager runs from one state, within
@@ -930,7 +930,7 @@ def aa_act_kernel_entry(aa: dict) -> dict:
 
 def phase_copy_synthesis(rng: np.random.Generator) -> dict:
     from music_synthesis_tpu_torch.infer.copy_synthesis import CopySynthesizer
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
 
     cs = CopySynthesizer("vocoder_istft")  # card's own dtype, on cuda
     out = {}
@@ -938,13 +938,13 @@ def phase_copy_synthesis(rng: np.random.Generator) -> dict:
         wav = test_audio(rng, *shape, cs.frontend.sample_rate)
         walls = []
         for _ in range(2):  # the first call includes cuDNN's set-up
-            before = logmel_kernel.n_launches
+            before = logmel_launches.n_calls
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             y, dist = cs(wav)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
-            check(logmel_kernel.n_launches == before + 1,
+            check(logmel_launches.n_calls == before + 1,
                   "copy-synthesis did not launch the log-mel kernel once")
         hop = cs.frontend.hop_length
         check(tuple(y.shape) == (shape[0], shape[1] // hop * hop),
@@ -1094,7 +1094,7 @@ def phase_training(rng: np.random.Generator, device: str = "cuda",
     """Stage-2 training steps on both sides of the warmup gate (main path);
     the caller zeroes the launch counts before and reads them after."""
     from music_synthesis_tpu_torch import zoo
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.train import stage2
     from music_synthesis_tpu_torch.train.flagship import (flagship_config,
                                                           zoo_train_state)
@@ -1111,7 +1111,7 @@ def phase_training(rng: np.random.Generator, device: str = "cuda",
     cuda = device == "cuda"
 
     def step(state):
-        before = logmel_kernel.n_launches
+        before = logmel_launches.n_calls
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -1126,7 +1126,7 @@ def phase_training(rng: np.random.Generator, device: str = "cuda",
         check(set(m) == keys, f"metric keys {sorted(m)} != {sorted(keys)}")
         check(all(np.isfinite(v) for v in m.values()), f"metrics {m}")
         if cuda:
-            check(logmel_kernel.n_launches == before + 1,
+            check(logmel_launches.n_calls == before + 1,
                   "a training step did not launch the log-mel kernel once")
         return state, m, ms, wall
 
@@ -1467,7 +1467,7 @@ def phase_lifecycle(tmp: Path) -> dict:
     caller zeroes the launch counts before and reads them after. Returns
     the paths of the exported zoo, the stage-2 run and its corpus too, for
     phases 9 and 10."""
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.scripts import (export_zoo, train_stage1,
                                                    train_stage2)
     from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
@@ -1479,7 +1479,7 @@ def phase_lifecycle(tmp: Path) -> dict:
         "--steps", "4", "--log-every", "2", "--ckpt-every", "4",
         "--outdir", str(run1)])
     out["loop"]["train_stage1"] = next(x for x in lines if x.startswith("loop:"))
-    check(logmel_kernel.n_launches == 0, "stage 1 launched the kernel")
+    check(logmel_launches.n_calls == 0, "stage 1 launched the kernel")
     corpus = run1 / "synthetic_corpus"
     check(len(list(corpus.glob("*.wav"))) == 8, "the CLI's corpus")
     run_cli(export_zoo, ["--run", str(run1), "--stage", "1", "--name",
@@ -1502,7 +1502,7 @@ def phase_lifecycle(tmp: Path) -> dict:
     dumps = sorted(p.name for p in run2.glob("vocoded_*.wav"))
     check(dumps == ["vocoded_0000002.wav", "vocoded_0000004.wav"],
           f"audio dumps {dumps}")
-    stage2_launches = logmel_kernel.n_launches
+    stage2_launches = logmel_launches.n_calls
     check(stage2_launches == 4 + len(dumps),
           f"{stage2_launches} log-mel launches for 4 stage-2 steps and "
           f"{len(dumps)} audio dumps")
@@ -1777,7 +1777,7 @@ def phase_eval_and_clis(lifecycle: dict, tmp: Path) -> dict:
     through the CLIs, in ``tmp`` (main path); the caller zeroes the launch
     counts before and reads them after."""
     from music_synthesis_tpu_torch import zoo
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.scripts import (eval_checkpoint, generate,
                                                    make_corpus, vocode)
     from music_synthesis_tpu_torch.utils.wav import read_wav
@@ -1826,14 +1826,14 @@ def phase_eval_and_clis(lifecycle: dict, tmp: Path) -> dict:
         f"{ev['gl_refined_distance_mean']:.4f}")
 
     # A run of the port's stage-2 CLI: one log-mel launch per clip.
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     t0 = time.perf_counter()
     run_cli(eval_checkpoint, ["--run", lifecycle["run2"], "--corpus",
                               lifecycle["corpus"], "--out",
                               str(tmp / "eval_run")])
     run_s = time.perf_counter() - t0
     ev_run = json.loads((tmp / "eval_run" / "eval.json").read_text())
-    out["eval_run_launches"] = logmel_kernel.n_launches - before
+    out["eval_run_launches"] = logmel_launches.n_calls - before
     check(out["eval_run_launches"] == ev_run["n_clips"],
           f"eval --run: {out['eval_run_launches']} log-mel launches for "
           f"{ev_run['n_clips']} clips")
@@ -1928,7 +1928,7 @@ def _rank_check(job: dict) -> dict:
     saved state on this rank's rows, with the injected draws; its metrics,
     the log-mel launches, and its parameters' distance to the
     single-process step's."""
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.train.checkpoint import restore_checkpoint
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -1939,7 +1939,7 @@ def _rank_check(job: dict) -> dict:
     noise = [n[rows] for n in job["noise"]]
     kw = ({"noise": noise, "precision": "exact"} if job["stage"] == 2
           else {"noise": noise, "z": job["z"][rows]})
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     matmul_tf32 = torch.backends.cuda.matmul.allow_tf32
     try:
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -1948,7 +1948,7 @@ def _rank_check(job: dict) -> dict:
     finally:
         torch.backends.cuda.matmul.allow_tf32 = matmul_tf32
     single = torch.load(job["single"], map_location="cpu")
-    return {"metrics": m, "launches": logmel_kernel.n_launches - before,
+    return {"metrics": m, "launches": logmel_launches.n_calls - before,
             "param_err": _params_err(state, single),
             "checksum": _checksum(state)}
 
@@ -1963,7 +1963,7 @@ def _rank_time(job: dict) -> dict:
     under ``profile_launches`` (the device's activities and busy share);
     and the gradient all-reduce alone on tensors of G's and D's sizes."""
     from music_synthesis_tpu_torch._graphs import disable_graphs
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.parallel import mesh
     from music_synthesis_tpu_torch.parallel.shard_map_dp import (
         make_shardmap_stage2_step)
@@ -1989,7 +1989,7 @@ def _rank_time(job: dict) -> dict:
             out.append(start.elapsed_time(end))
         return out, m
 
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     step = make_shardmap_stage2_step(cfg)
     dp_ms, m = timed(step)
     dp_eager_ms = plain_ms = prof = None
@@ -2003,7 +2003,7 @@ def _rank_time(job: dict) -> dict:
         with disable_graphs():
             dp_eager_ms = timed(step)[0]
         plain_ms = timed(lambda s, w: stage2.train_step(cfg, s, w))[0]
-    launches = logmel_kernel.n_launches - before
+    launches = logmel_launches.n_calls - before
     state = restore_checkpoint(job["state"], dev)
     reduce_ms = {}
     for part in ("g", "d"):
@@ -2044,7 +2044,7 @@ def _rank_graph(job: dict) -> dict:
     import torch.distributed as dist
 
     from music_synthesis_tpu_torch._graphs import disable_graphs, pool_bytes
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.parallel.shard_map_dp import (
         make_shardmap_stage2_many)
     from music_synthesis_tpu_torch.train import stage1, stage2
@@ -2064,7 +2064,7 @@ def _rank_graph(job: dict) -> dict:
 
     def six(graphs: bool) -> tuple:
         st, metrics = start(False), []
-        before = logmel_kernel.n_launches
+        before = logmel_launches.n_calls
         with contextlib.ExitStack() as stack:
             if not graphs:
                 stack.enter_context(disable_graphs())
@@ -2073,7 +2073,7 @@ def _rank_graph(job: dict) -> dict:
                     st = dataclasses.replace(st, step=gate)
                 st, m = step(st, batches[0])
                 metrics.append(m)
-        return (metrics, _state_tensors(st), logmel_kernel.n_launches - before,
+        return (metrics, _state_tensors(st), logmel_launches.n_calls - before,
                 _checksum(st))
 
     t0 = time.perf_counter()
@@ -2092,23 +2092,23 @@ def _rank_graph(job: dict) -> dict:
            "eager_launches": eager_launches,
            "graphed_launches": graphed_launches,
            "captured": program is not None and program.graph is not None,
-           "launches_per_replay": program.launches_per_replay,
+           "launches_per_replay": program.counts_per_replay["logmel_kernel"],
            "pool_bytes": pool_bytes(program.pool, dev),
            "checksum": checksum, "last_metrics": graphed_m[-1]}
     if job["many"]:
-        before = logmel_kernel.n_launches
+        before = logmel_launches.n_calls
         st, m_many = make_shardmap_stage2_many(cfg)(start(True), batches)
-        many_launches = logmel_kernel.n_launches - before
+        many_launches = logmel_launches.n_calls - before
         s_many = _state_tensors(st)
         st = start(True)
-        before = logmel_kernel.n_launches
+        before = logmel_launches.n_calls
         for w in batches:
             st, m_four = step(st, w)
         out["many"] = {"metrics_bitwise": m_many == m_four,
                        "state_max_abs": max(_gap(a, b) for a, b in zip(
                            s_many, _state_tensors(st))),
                        "launches": many_launches,
-                       "four_launches": logmel_kernel.n_launches - before}
+                       "four_launches": logmel_launches.n_calls - before}
     out["seconds"] = time.perf_counter() - t0
     return out
 
@@ -2628,16 +2628,16 @@ def phase_extract_features(tmp: Path) -> dict:
     from music_synthesis_tpu_torch.config import FRONTEND_CPU_CLIP
     from music_synthesis_tpu_torch.data.dataset import make_synthetic_corpus
     from music_synthesis_tpu_torch.ops import logmel as L
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.scripts import extract_features
     from music_synthesis_tpu_torch.utils.wav import load_wav
 
     cfg = FRONTEND_CPU_CLIP.frontend
     clip = make_synthetic_corpus(tmp / "clip_4s", n_clips=1, seconds=4.0)[0]
-    logmel_kernel.n_launches = 0
+    logmel_launches.n_calls = 0
     lines = run_cli(extract_features, [str(clip), "--out",
                                        str(tmp / "mel.npy")])
-    launches = logmel_kernel.n_launches
+    launches = logmel_launches.n_calls
     mel = np.load(tmp / "mel.npy")
     check(launches == 1, f"extract_features launched the kernel {launches} "
           "times")
@@ -2699,17 +2699,17 @@ def phase_eval_stage1(tmp: Path) -> dict:
     launch), the kernel at [64, 32768] against float64, and the card's
     metrics against the CPU's."""
     from music_synthesis_tpu_torch.data.dataset import AudioDataset
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.scripts import eval_stage1
 
     corpus = tmp / "corpus_rich"
-    logmel_kernel.n_launches = 0
+    logmel_launches.n_calls = 0
     t0 = time.perf_counter()
     metrics, anchors = eval_stage1.main([
         "--zoo", "specgan_flux", "--corpus", str(corpus), "--n",
         str(EVAL1_N), "--out", str(tmp / "eval_stage1")])
     seconds = time.perf_counter() - t0
-    launches = logmel_kernel.n_launches
+    launches = logmel_launches.n_calls
     check(launches == 1, f"eval_stage1 launched the kernel {launches} times")
     check(all(np.isfinite(metrics[k]) for k in EVAL1_METRICS)
           and metrics["n_patches"] == EVAL1_N, f"eval_stage1 {metrics}")
@@ -3203,7 +3203,7 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
     (``torch.profiler``), and ``region_split``'s d_step / g_step (eager)."""
     from music_synthesis_tpu_torch import zoo
     from music_synthesis_tpu_torch._graphs import disable_graphs, pool_bytes
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.train import stage2
     from music_synthesis_tpu_torch.train.flagship import (flagship_config,
                                                           zoo_train_state)
@@ -3281,15 +3281,15 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
     # (b) train_step_many, K = 4, against four graphed steps; (c) one
     # launch per replay.
     past = dataclasses.replace(state0, step=t.g_warmup_steps)
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     st, m_many = stage2.train_step_many(cfg, past, batches)
-    many_launches = logmel_kernel.n_launches - before
+    many_launches = logmel_launches.n_calls - before
     s_many = _state_tensors(st)
     st = past
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     for w in batches:
         st, m_four = stage2.train_step(cfg, st, w)
-    four_launches = logmel_kernel.n_launches - before
+    four_launches = logmel_launches.n_calls - before
     s_four = _state_tensors(st)
     many_gap = {name: _gap(a, b)
                 for name, a, b in zip(STAGE2_GRAPH_NAMES, s_many, s_four)}
@@ -3308,7 +3308,7 @@ def stage2_graphs(rng: np.random.Generator) -> dict:
           f"{four_launches} in 4 steps (1 per replay)")
     step = stage2.graphed_step(cfg, wav.shape, wav.device)
     check(step.program.graph is not None and
-          step.program.launches_per_replay == 1,
+          step.program.counts_per_replay["logmel_kernel"] == 1,
           "the stage-2 graph holds one log-mel launch")
     out["many"] = {"metrics_equal": m_many == m_four, "rel": rel_many,
                    "state_max_abs": many_gap, "launches": many_launches,
@@ -3399,7 +3399,7 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
     from music_synthesis_tpu_torch.infer.copy_synthesis import CopySynthesizer
     from music_synthesis_tpu_torch.infer.generate import (
         GraphedPipeline, generate, generate_long)
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
     from music_synthesis_tpu_torch.serve import ServeConfig, SynthService
     from music_synthesis_tpu_torch.train import stage1
     from music_synthesis_tpu_torch.train.flagship import (
@@ -3469,14 +3469,14 @@ def phase_cuda_graphs(rng: np.random.Generator) -> dict:
         "copy-synthesis [16, 8192] (vocoder_istft bf16)",
         lambda: cs.programs(cs.precision, cs._body, wav),
         cs.programs.pool_bytes)
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     with torch.inference_mode():
         for _ in range(10):
             cs.programs(cs.precision, cs._body, wav)
     torch.cuda.synchronize()
-    after = logmel_kernel.n_launches
+    after = logmel_launches.n_calls
     out["copy_synthesis"]["kernel_launches_over_10_replays"] = after - before
-    log(f"[graphs] logmel_kernel.n_launches before and after 10 replays of "
+    log(f"[graphs] logmel_launches.n_calls before and after 10 replays of "
         f"the copy-synthesis graph: {before} -> {after}")
     check(after - before == 10, "10 replays of the copy-synthesis graph did "
           "not count 10 launches of the log-mel kernel")
@@ -3701,7 +3701,7 @@ def main() -> int:
     def banner(title: str) -> None:
         log(f"== {title} (at {time.perf_counter() - t_start:.1f} s)")
 
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
 
     banner("phase 1: build and environment")
     build, build_native = phase_build()
@@ -3710,10 +3710,10 @@ def main() -> int:
     kv = phase_kernel_vs_plain(rng)
 
     banner("phases 3-4: main path (copy-synthesis, serving)")
-    logmel_kernel.n_launches = 0
+    logmel_launches.n_calls = 0
     copy = phase_copy_synthesis(rng)
     serving, svc = phase_serving()
-    launches = {"logmel": logmel_kernel.n_launches}
+    launches = {"logmel": logmel_launches.n_calls}
     log(f"[main] kernel launches on the main path: {launches}")
     check(launches["logmel"] > 0, "the main path never launched the log-mel kernel")
 
@@ -3722,9 +3722,9 @@ def main() -> int:
     serve_err = check_serving_on_cpu(svc)
 
     banner("phase 6: training (main path), and against the CPU")
-    logmel_kernel.n_launches = 0
+    logmel_launches.n_calls = 0
     training = phase_training(rng)
-    launches["train"] = logmel_kernel.n_launches
+    launches["train"] = logmel_launches.n_calls
     log(f"[main] kernel launches in training: {launches['train']}")
     check(launches["train"] == training["steps"],
           "training did not launch the log-mel kernel once per step")
@@ -3734,9 +3734,9 @@ def main() -> int:
         f"{card_name_and_power()}")
 
     banner("phase 7: stage-1 training (main path), and against the CPU")
-    logmel_kernel.n_launches = 0
+    logmel_launches.n_calls = 0
     stage1_train = phase_stage1_training(rng)
-    launches["stage1_train"] = logmel_kernel.n_launches
+    launches["stage1_train"] = logmel_launches.n_calls
     check(launches["stage1_train"] == 0,
           "stage-1 training launched the log-mel kernel (the reference's "
           "stage 1 runs no kernel)")
@@ -3747,25 +3747,25 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory(prefix="lifecycle_") as tmp:
         banner("phase 8: train -> export -> serve through the CLIs (main path)")
-        logmel_kernel.n_launches = 0
+        logmel_launches.n_calls = 0
         lifecycle = phase_lifecycle(Path(tmp))
-        launches["lifecycle"] = logmel_kernel.n_launches
+        launches["lifecycle"] = logmel_launches.n_calls
         log(f"[main] kernel launches in the lifecycle: {launches['lifecycle']}")
         check(launches["lifecycle"] == lifecycle["stage2_launches"],
               "serving the exported pair launched the log-mel kernel")
 
         banner("phase 9: the HTTP server (main path)")
-        logmel_kernel.n_launches = 0
+        logmel_launches.n_calls = 0
         http_out = phase_http(lifecycle)
-        launches["http"] = logmel_kernel.n_launches
+        launches["http"] = logmel_launches.n_calls
         log(f"[main] kernel launches over HTTP: {launches['http']}")
         check(launches["http"] == 0, "serving launched the log-mel kernel "
               "(the reference's serving path runs none)")
 
         banner("phase 10: evaluation and the inference CLIs (main path)")
-        logmel_kernel.n_launches = 0
+        logmel_launches.n_calls = 0
         evals = phase_eval_and_clis(lifecycle, Path(tmp))
-        launches["eval_clis"] = logmel_kernel.n_launches
+        launches["eval_clis"] = logmel_launches.n_calls
         log(f"[main] kernel launches in evaluation and the CLIs: "
             f"{launches['eval_clis']} ({evals['eval_run_launches']} in "
             f"eval_checkpoint --run)")
@@ -3773,9 +3773,9 @@ def main() -> int:
               "only eval_checkpoint --run conditions through the kernel here")
 
         banner("phase 12: data parallelism (main path, in spawned ranks)")
-        logmel_kernel.n_launches = 0
+        logmel_launches.n_calls = 0
         dp = phase_data_parallel(Path(tmp))
-        launches["dp_single"] = logmel_kernel.n_launches
+        launches["dp_single"] = logmel_launches.n_calls
         check(launches["dp_single"] == 1,
               "in this process phase 12 launches the kernel once, in the "
               "single-process stage-2 step the ranks are held to")
@@ -3800,9 +3800,9 @@ def main() -> int:
             f"{launches['eval_stage1']}")
 
         banner("phase 14: benchmark scripts (main path)")
-        logmel_kernel.n_launches = 0
+        logmel_launches.n_calls = 0
         benchmark = phase_benchmark(Path(tmp))
-        launches["benchmark"] = logmel_kernel.n_launches
+        launches["benchmark"] = logmel_launches.n_calls
         by_scenario = benchmark["launches"]
         log(f"[main] kernel launches in the benchmark scripts: "
             f"{launches['benchmark']} ({by_scenario})")
@@ -3813,17 +3813,17 @@ def main() -> int:
               "and kernel-vs-plain scenarios")
 
     banner("phase 15: CUDA graphs against eager launches (main path)")
-    logmel_kernel.n_launches = 0
+    logmel_launches.n_calls = 0
     graphs = phase_cuda_graphs(rng)
-    launches["cuda_graphs"] = logmel_kernel.n_launches
+    launches["cuda_graphs"] = logmel_launches.n_calls
     log(f"[main] kernel launches in phase 15: {launches['cuda_graphs']}")
     check(launches["cuda_graphs"] > 0,
           "phase 15 never launched the log-mel kernel")
 
     banner("phase 16: the demo notebook (main path)")
-    logmel_kernel.n_launches = 0
+    logmel_launches.n_calls = 0
     notebook = phase_notebook()
-    launches["notebook"] = logmel_kernel.n_launches
+    launches["notebook"] = logmel_launches.n_calls
     log(f"[main] kernel launches in the notebook: {launches['notebook']}")
     check(launches["notebook"] == 0, "the notebook launched the log-mel "
           "kernel (its path starts from latents)")

@@ -7,7 +7,9 @@ on a side stream (which fills every cache of device constants, loads the
 kernel library and makes cuDNN's and cuFFT's choices), captures one call
 with ``torch.cuda.graph``, and from then on copies each call's inputs into
 its static input buffers, replays the graph and returns its static
-outputs. ``Programs`` keeps one such program per key and input shapes.
+outputs. ``Programs`` keeps one such program per key and input shapes;
+``cached_step`` keeps the training steps (``train.state.InPlaceStep``),
+each of which owns one.
 
 - Graphs run on CUDA devices only. A call site decides by the device
   (``enabled``): on the CPU it runs its function eagerly, as before, and
@@ -23,14 +25,14 @@ outputs. ``Programs`` keeps one such program per key and input shapes.
 - The switches that choose kernels (cuDNN's and cuBLAS's TF32 and
   reduced-precision flags, ``flags()``) are baked in at capture; they are
   part of every key, so a call under other switches captures its own graph.
-- ``ops/logmel.py``'s ``logmel_kernel.n_launches`` counts the launches of
-  calls: a replay adds the launches its capture recorded. The warm-up's
-  eager launches and the capture build the program (as the reference's
-  first call compiles its program) and are taken back out of the count.
-  The tracer's ``COUNTERS`` (``ops/conv.py``'s ``grouped_wgrad2``, the
-  second-order weight terms of grouped convolutions, and
-  ``ops/alias_free.py``'s ``aa_act``) are kept the same way, and the
-  tracer holds each label's counts per capture.
+- The tracer's ``COUNTERS`` (``ops/logmel.py``'s ``logmel_kernel``, the
+  log-mel kernel's launches; ``ops/conv.py``'s ``grouped_wgrad2``, the
+  second-order weight terms of grouped convolutions; ``ops/alias_free.py``'s
+  ``aa_act`` and ``aa_act_kernel``) count calls: a replay adds the calls
+  its capture issued. The warm-up's eager calls and the capture build the
+  program (as the reference's first call compiles its program) and are
+  taken back out of the counts; the tracer holds each label's counts per
+  capture.
 - A program may hold NCCL's collectives (a training step under an NCCL
   group: ``parallel.mesh.graphable``). NCCL makes its communicator at the
   group's first collective, on the host, which is outside any capture
@@ -38,11 +40,13 @@ outputs. ``Programs`` keeps one such program per key and input shapes.
   ``capture_error_mode="thread_local"``, because NCCL's watchdog thread
   queries its events while a capture runs, which the global mode would
   count as a forbidden call that invalidates the capture. The ranks must
-  warm up, capture, replay and drop their programs in the same order
-  (``train.state.cached_step``), or the collectives of one rank pair with
-  another program's on another rank and hang; a group is left only after
-  its programs are dropped (``parallel.mesh.leave``). gloo's collectives
-  run on the host, and no graph can hold them.
+  warm up, capture, replay and drop their programs in the same order: each
+  rank makes the same calls with the same keys in the same order
+  (``cached_step``), or the collectives of one rank's warm-up or replay
+  pair with another program's on another rank and hang. A group is left
+  only after its programs are dropped (``drop_graphed_steps``, which
+  ``parallel.mesh.leave`` calls). gloo's collectives run on the host, and
+  no graph can hold them.
 - ``disable_graphs()`` runs the entry points eagerly on the card too, as
   ``jax.disable_jit()`` does for the reference: to time the eager
   launches beside the graphs, and to compare the two.
@@ -66,7 +70,6 @@ import contextlib
 import torch
 
 from music_synthesis_tpu_torch._device import capturing
-from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
 from music_synthesis_tpu_torch.utils.profiling import (
     COUNTERS,
     capture_marks,
@@ -75,7 +78,7 @@ from music_synthesis_tpu_torch.utils.profiling import (
 )
 
 __all__ = ["GraphedProgram", "Programs", "disable_graphs", "enabled",
-           "flags", "pool_bytes"]
+           "flags", "pool_bytes", "cached_step", "drop_graphed_steps"]
 
 _disabled = 0  # open disable_graphs() blocks
 WARMUP = 2  # eager calls before a capture
@@ -146,7 +149,6 @@ class GraphedProgram:
         self.label = label or getattr(fn, "__name__", "program")
         self.graph: torch.cuda.CUDAGraph | None = None
         self.clock = None
-        self.launches_per_replay = 0
         self.counts_per_replay: dict[str, int] = {}
         self._inputs: list[torch.Tensor] = []
         self._outputs = None
@@ -158,7 +160,6 @@ class GraphedProgram:
         for buf, a in zip(self._inputs, args):
             buf.copy_(a)
         saved = [t.clone() for t in self.mutates]
-        count = logmel_kernel.n_launches
         counts = {n: c.n_calls for n, c in COUNTERS.items()}
         main = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
@@ -168,19 +169,16 @@ class GraphedProgram:
                 self.fn(*self._inputs)
         main.wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        mark = logmel_kernel.n_launches
         marked = {n: c.n_calls for n, c in COUNTERS.items()}
         # thread_local: other threads (NCCL's watchdog) may call CUDA.
         with capture_marks() as marks, torch.cuda.graph(
                 graph, pool=self.pool, capture_error_mode="thread_local"):
             self._outputs = self.fn(*self._inputs)
-        self.launches_per_replay = logmel_kernel.n_launches - mark
         self.counts_per_replay = {n: c.n_calls - marked.get(n, 0)
                                   for n, c in COUNTERS.items()}
         self.clock = tracer.clock(self.label, marks,
                                   counts=self.counts_per_replay)
         # building is not a call
-        logmel_kernel.n_launches = count
         for n, c in COUNTERS.items():
             c.n_calls = counts.get(n, 0)
         if self.mutates:
@@ -210,7 +208,6 @@ class GraphedProgram:
             with span("graph.launch") as launch:
                 self.graph.replay()
             tracer.end(self.clock, rec, launch.ms)
-        logmel_kernel.n_launches += self.launches_per_replay
         for n, k in self.counts_per_replay.items():
             COUNTERS[n].n_calls += k
         return self._outputs
@@ -283,3 +280,30 @@ def pool_bytes(pool, device: torch.device | str) -> int:
     return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                if seg["device"] == index
                and tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+#: Every cache of steps that ``cached_step`` has filled in this process.
+_CACHES: list[dict] = []
+
+
+def cached_step(steps: dict, key, make, limit: int = 4):
+    """``steps[key]``, made by ``make()`` if missing; the oldest entries
+    beyond ``limit`` are dropped (with their graphs and pools). Ranks of
+    a group call it in the same order (the module's docstring)."""
+    if not any(c is steps for c in _CACHES):
+        _CACHES.append(steps)
+    step = steps.pop(key, None) or make()
+    steps[key] = step
+    while len(steps) > limit:
+        del steps[next(iter(steps))]
+    return step
+
+
+def drop_graphed_steps() -> None:
+    """Drops every step that ``cached_step`` holds in this process, with
+    its graph and pool (``parallel.mesh.leave`` calls it before the group
+    is destroyed), after the card has run every replay it was given."""
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
+    for steps in _CACHES:
+        steps.clear()

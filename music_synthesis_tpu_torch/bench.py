@@ -90,9 +90,10 @@ from music_synthesis_tpu_torch.ops.logmel import (
     log_mel_for_vocoder_plain,
     log_mel_plain,
     logmel_gemm_flops,
-    logmel_kernel,
+    logmel_launches,
 )
 from music_synthesis_tpu_torch.train import stage1, stage2
+from music_synthesis_tpu_torch.train.state import run, run_step
 from music_synthesis_tpu_torch.utils.profiling import (
     device_busy,
     device_spans,
@@ -442,10 +443,10 @@ def step_flops(cfg: PipelineConfig, state, wav: torch.Tensor) -> dict:
     backward and the matmuls, by PyTorch's formulas), and under
     ``logmel_kernel`` the kernel's GEMMs for each launch (a ctypes call, so
     no counter sees it). The step runs once; its result is dropped."""
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     with FlopCounterMode(display=False) as counter:
-        stage2._step(cfg, state, wav, None, "fast")
-    launches = logmel_kernel.n_launches - before
+        run(stage2.stage("fast"), cfg, state, wav)
+    launches = logmel_launches.n_calls - before
     out = {str(op): int(n) for op, n in
            counter.get_flop_counts().get("Global", {}).items()}
     b, length = wav.shape
@@ -475,7 +476,7 @@ def bench_stage2_step(results: dict, env: Env, variants: dict | None = None,
 
     Steps are chained from one seeded state, each on a fresh batch
     ``0.5 tanh(normal)`` drawn on the device, with the metrics left there
-    (``train.stage2._run_step``: on a card the replay of the step's CUDA
+    (``train.state.run_step``: on a card the replay of the step's CUDA
     graph, as the JAX script times its jitted step; the same runs with
     the graphs disabled follow, their time on stderr): the run's one host
     read is its summed ``d_loss``. The log-mel kernel runs once per step,
@@ -509,7 +510,7 @@ def bench_stage2_step(results: dict, env: Env, variants: dict | None = None,
             nonlocal steps
             st, total = _state, torch.zeros((), device=env.device)
             for _ in range(n):
-                st, m = stage2._run_step(_cfg, st, _draw(gen))
+                st, m = run_step(stage2.stage(), _cfg, st, _draw(gen))
                 total = total + m["d_loss"]
                 steps += 1
             return total
@@ -721,14 +722,14 @@ def main(argv: list[str] | None = None,
         if device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(device)
         t0 = time.perf_counter()
-        before = logmel_kernel.n_launches
+        before = logmel_launches.n_calls
         try:
             fn(record["results"], env, **overrides.get(name, {}))
         except Exception as e:  # noqa: BLE001 -- recorded, the rest run
             record["failed"][name] = repr(e)
             log(f"[{name}] failed: {e!r}\n{traceback.format_exc()}")
         env.notes.setdefault("logmel_launches", {})[name] = (
-            logmel_kernel.n_launches - before)
+            logmel_launches.n_calls - before)
         peak = (f", peak memory "
                 f"{torch.cuda.max_memory_allocated(device) / 2 ** 30:.3f} GiB"
                 if device.type == "cuda" else "")

@@ -54,10 +54,12 @@ from music_synthesis_tpu_torch.ops.frontend import (
     dft_matrices,
     mel_matrix,
 )
+from music_synthesis_tpu_torch.utils.profiling import counter
 
 __all__ = [
     "LogMelKernel",
     "logmel_kernel",
+    "logmel_launches",
     "logmel_constants",
     "split_bases",
     "mel_groups",
@@ -73,6 +75,10 @@ __all__ = [
 PRECISIONS = ("exact", "fast")
 _TENSOR_CORES = {"exact": 0, "fast": 1}  # the kernel path of each mode
 _ENCODE_MISSING = 10000  # csrc/logmel.cu, tc::kEncodeMissing; + 1 + CUresult
+
+#: Launches of the kernel: up by one per launch here, and in
+#: ``_graphs.GraphedProgram`` by what its capture issued at each replay.
+logmel_launches = counter("logmel_kernel")
 # The "fast" path's stage, sample phases and chunk (csrc/logmel.cu,
 # tc::kBK, tc::kPhases and tc::kBN): its split bases hold whole stages of
 # each phase of K_PHASES and whole chunks of bins, zero-padded, and both
@@ -193,19 +199,13 @@ def _error(rc: int) -> str:
 
 
 class LogMelKernel:
-    """ctypes binding of ``csrc/logmel.cu`` with a count of its launches.
-
-    ``n_launches`` goes up by one each time the kernel is launched, and
-    nowhere else: here for an eager launch, and in
-    ``_graphs.GraphedProgram`` for each replay of a CUDA graph that holds
-    the kernel (by the launches its capture recorded; the warm-up and the
-    capture that build a graph are taken back out of the count). The
-    launch is captured whole: the tile counters' ``cudaMemsetAsync`` and
-    the kernel on the current stream, the workspace from the graph's pool.
+    """ctypes binding of ``csrc/logmel.cu``. Its launches are counted in
+    ``logmel_launches``. The launch is captured whole: the tile counters'
+    ``cudaMemsetAsync`` and the kernel on the current stream, the
+    workspace from the graph's pool.
     """
 
     def __init__(self):
-        self.n_launches = 0
         self._forward = None  # the C functions, bound at first launch
         self._workspace_words = None
         self._fast_split = None
@@ -275,11 +275,11 @@ class LogMelKernel:
                 split, stream)
         if rc != 0:
             raise RuntimeError(f"logmel kernel launch failed: {_error(rc)}")
-        self.n_launches += 1
+        logmel_launches.n_calls += 1
         return out
 
 
-#: The process-wide binding; ``logmel_kernel.n_launches`` is its count.
+#: The process-wide binding.
 logmel_kernel = LogMelKernel()
 
 

@@ -15,7 +15,7 @@ On a card, over an NCCL group, each rank replays the step's CUDA graph
 losses' cross-rank sums and the metrics' means are NCCL kernels captured
 in it; the draws stay eager. Over gloo, whose collectives run on the host
 and cannot be captured, and on the CPU, the step runs eagerly. Every rank
-must call the same steps in the same order (``train.state.cached_step``).
+must call the same steps in the same order (``_graphs.py`` says why).
 """
 
 from __future__ import annotations

@@ -33,7 +33,7 @@ from typing import Any, Callable, Sequence
 import torch
 import torch.distributed as dist
 
-from music_synthesis_tpu_torch.train.state import drop_graphed_steps
+from music_synthesis_tpu_torch._graphs import drop_graphed_steps
 
 __all__ = ["world_size", "rank", "backend_for", "init_process_group",
            "leave", "graphable", "group_key", "shard_batch", "shard_chunk",

@@ -7,14 +7,15 @@ feature-matching and optional temporal-flux terms), then the EMA of G. It
 returns a new ``GANState`` and the metrics of the JAX step, under the same
 keys, as Python floats.
 
-The structure is ``train/stage2.py``'s: eager PyTorch, modules without
-storage called with the state's parameters (``functional_call``), one
+The structure is ``train/stage2.py``'s, on the same engine
+(``train/state.py``, ``STAGE``): eager PyTorch, modules without storage
+called with the state's parameters (``functional_call``), one
 ``torch.autograd.grad`` per player, one G forward for both updates. Each
 step draws the latents, then (with instance noise) three normals, from the
 state's generator; ``z=`` and ``noise=`` replace those draws. The step's
 phases are ``utils.profiling.region``s under the JAX step's
 ``jax.named_scope`` names, timed per replay under the label
-``stage1_step``, with stage 2's host spans.
+``stage1_step``, with the engine's host spans.
 
 Data parallelism (``group``, ``dp``) is ``train/stage2.py``'s: gradients
 and metrics averaged over the ranks, the draws of the global batch kept by
@@ -31,11 +32,8 @@ from __future__ import annotations
 import functools
 
 import torch
-import torch.distributed as dist
 from torch.func import functional_call
 
-from music_synthesis_tpu_torch._device import resolve_device
-from music_synthesis_tpu_torch._graphs import enabled, flags
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.losses.gan import (
     d_loss_fn,
@@ -51,31 +49,29 @@ from music_synthesis_tpu_torch.models.specgan import (
 from music_synthesis_tpu_torch.parallel.mesh import (
     AllReduce,
     all_reduce_mean,
-    graphable,
-    group_key,
     world_size,
 )
-from music_synthesis_tpu_torch.train.stage2 import (
+from music_synthesis_tpu_torch.train.state import (
     Draws,
+    GANState,
+    InPlaceStep,
+    Stage,
     _copy_generator,
     _device,
     _floats,
-    noise_scale,
-    reduce_metrics,
-)
-from music_synthesis_tpu_torch.train.state import (
-    GANState,
-    InPlaceStep,
-    assign,
-    cached_step,
     global_norm,
     make_optimizer,
-    next_state,
+    new_state,
+    noise_scale,
+    reduce_metrics,
+    run_step,
+    step_for,
 )
-from music_synthesis_tpu_torch.utils.profiling import region, span
+from music_synthesis_tpu_torch.utils.profiling import region
 
 __all__ = ["make_models", "make_train_state", "forward_losses",
-           "forward_and_loss", "GraphedStep", "graphed_step", "train_step"]
+           "forward_and_loss", "STAGE", "GraphedStep", "graphed_step",
+           "train_step"]
 
 
 def make_models(cfg: PipelineConfig,
@@ -97,20 +93,8 @@ def make_train_state(cfg: PipelineConfig, seed: int | None = None,
     """Seeded G and D parameters, zeroed Adam states, step 0, on ``device``
     (``cuda`` unless told otherwise). ``seed`` defaults to
     ``cfg.train.seed``; the latent and noise generator is seeded with
-    ``seed + 1``."""
-    dev = resolve_device(device)
-    seed = cfg.train.seed if seed is None else seed
-    gen, disc = make_models(cfg, torch.Generator().manual_seed(seed))
-    g_params = {k: v.detach().to(dev) for k, v in gen.named_parameters()}
-    d_params = {k: v.detach().to(dev) for k, v in disc.named_parameters()}
-    t = cfg.train
-    return GANState(
-        step=0, g_params=g_params, d_params=d_params,
-        g_opt=make_optimizer(t.g_lr, t).init(g_params),
-        d_opt=make_optimizer(t.d_lr, t).init(d_params),
-        rng=torch.Generator(device=dev).manual_seed(seed + 1),
-        g_ema=({k: v.clone() for k, v in g_params.items()}
-               if t.ema_decay > 0 else None))
+    ``seed + 1`` (``train.state.new_state``)."""
+    return new_state(cfg, make_models, seed, device)
 
 
 def forward_losses(cfg: PipelineConfig, state: GANState, real_mel,
@@ -141,23 +125,22 @@ def _flux_profile(x: torch.Tensor) -> torch.Tensor:
 
 
 def _draws(cfg: PipelineConfig, state: GANState, dev: torch.device, shape,
-           z, noise, group=None, dp: str = "shard_map"):
-    """``(rng, z, noise)``: the step's random inputs on ``dev``, drawn in
-    the step's order from a copy of ``state.rng`` (returned, advanced)
+           z=None, noise=None, group=None, dp: str = "shard_map"):
+    """``(rng, (z, *noise))``: the step's random inputs on ``dev``, drawn
+    in the step's order from a copy of ``state.rng`` (returned, advanced)
     where not given: the latents ``[B, latent_dim]``, then with instance
-    noise three normals of the batch's ``shape`` (``noise`` is ``()``
-    without it)."""
+    noise three normals of the batch's ``shape`` (none without it)."""
     rng = _copy_generator(state.rng)
     draws = Draws(rng, group, dp)
     if z is None:
         z = draws.normal((shape[0], cfg.specgan.latent_dim))
     z = torch.as_tensor(z, dtype=torch.float32, device=dev)
     if cfg.train.d_input_noise <= 0:
-        return rng, z, ()
+        return rng, (z,)
     if noise is None:
         noise = [draws.normal(shape) for _ in range(3)]
-    return rng, z, tuple(torch.as_tensor(n, dtype=torch.float32, device=dev)
-                         for n in noise)
+    return rng, (z, *(torch.as_tensor(n, dtype=torch.float32, device=dev)
+                      for n in noise))
 
 
 def _scalars(cfg: PipelineConfig, state: GANState) -> list[float]:
@@ -169,23 +152,12 @@ def _scalars(cfg: PipelineConfig, state: GANState) -> list[float]:
             *make_optimizer(t.d_lr, t).scalars(state.d_opt.count)]
 
 
-def _step(cfg: PipelineConfig, state: GANState, real_mel, z, noise,
-          group=None, dp: str = "shard_map"):
-    """One D and one G update; the metrics stay tensors on the device."""
-    dev = _device(state)
-    real = torch.as_tensor(real_mel, dtype=torch.float32, device=dev)
-    rng, z, noise = _draws(cfg, state, dev, real.shape, z, noise, group, dp)
-    *new, metrics = _update(cfg, state, real, z, noise,
-                            _scalars(cfg, state), group, dp)
-    return next_state(state, rng, state.d_opt.count + 1, *new), metrics
-
-
 def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
-            z: torch.Tensor, noise: tuple, scalars, group=None,
-            dp: str = "shard_map"):
-    """The step's arithmetic on given draws and ``_scalars`` (floats, or
-    0-d fp32 tensors): ``(g_params, d_params, g_opt, d_opt, g_ema,
+            draws: tuple, scalars, group=None, dp: str = "shard_map"):
+    """The step's arithmetic on ``_draws``' draws and ``_scalars`` (floats,
+    or 0-d fp32 tensors): ``(g_params, d_params, g_opt, d_opt, g_ema,
     metrics)``, new tensors; nothing is changed in place."""
+    z, *noise = draws
     t = cfg.train
     gen, disc = _modules(cfg)
     g_tx, d_tx = make_optimizer(t.g_lr, t), make_optimizer(t.d_lr, t)
@@ -300,73 +272,25 @@ def _update(cfg: PipelineConfig, state: GANState, real: torch.Tensor,
     return g_params, d_params, g_opt, d_opt, g_ema, out
 
 
-def _update_in_place(cfg: PipelineConfig, state: GANState,
-                     real: torch.Tensor, z: torch.Tensor,
-                     scalars: torch.Tensor, *noise: torch.Tensor, group=None,
-                     dp: str = "shard_map") -> dict:
-    """``_update`` on the 0-d tensors of ``scalars`` [7], its new values
-    written back into ``state``'s tensors; returns the metrics."""
-    *new, metrics = _update(cfg, state, real, z, noise, scalars.unbind(),
-                            group, dp)
-    assign(state, *new)
-    return metrics
+#: The stage-1 step as the engine runs it (``train.state.Stage``): D
+#: takes one Adam update every step.
+STAGE = Stage("stage1_step", _draws, _scalars, _update, lambda cfg, step: 1)
 
 
-class GraphedStep(InPlaceStep):
+def GraphedStep(cfg: PipelineConfig, device: torch.device | str,
+                group=None, dp: str = "shard_map") -> InPlaceStep:
     """The step in place (``train.state.InPlaceStep``): on a CUDA device
-    one CUDA graph, on the CPU the same arithmetic run eagerly. The draws
-    (latents, instance noise) are made eagerly from the state's generator,
-    in the functional step's order, and the per-step scalars (the noise
-    sigma, each Adam's learning rate and bias corrections) are filled into
-    0-d fp32 tensors before each call, so a call computes what ``_step``
-    computes, draw for draw. ``group`` and ``dp``: the data-parallel step,
-    as ``stage2.GraphedStep`` takes them (its collectives in the graph,
-    NCCL's only; its draws eager).
-    """
-
-    def __init__(self, cfg: PipelineConfig, device: torch.device | str,
-                 group=None, dp: str = "shard_map"):
-        device = torch.device(device)
-        if device.type == "cuda" and not graphable(group):
-            raise ValueError("a CUDA graph cannot capture the collectives "
-                             f"of a {dist.get_backend(group)} group")
-        super().__init__(functools.partial(_update_in_place, cfg,
-                                           group=group, dp=dp), device,
-                         "stage1_step")
-        self.cfg, self.group, self.dp = cfg, group, dp
-
-    def __call__(self, state: GANState, real_mel, z=None, noise=None
-                 ) -> tuple[GANState, dict[str, torch.Tensor]]:
-        """One step from ``state`` on ``real_mel`` (``z``, ``noise`` as in
-        ``train_step``); the metrics stay tensors (the graph's buffers on
-        the card: read them before the next call)."""
-        real = torch.as_tensor(real_mel, dtype=torch.float32)
-        with span("step.draws"):
-            rng, z, noise = _draws(self.cfg, state, self.device, real.shape,
-                                   z, noise, self.group, self.dp)
-        with span("step.inputs"):
-            scalars = torch.tensor(_scalars(self.cfg, state),
-                                   dtype=torch.float32)
-            launch = self.load(state, real, z, scalars, *noise)
-        metrics = launch()
-        return self.advanced(state, rng, state.d_opt.count + 1), metrics
-
-
-#: The graphed steps of this process, by (config, batch shape, device,
-#: ``_graphs.flags()``, ``parallel.mesh.group_key``); the oldest beyond
-#: ``cached_step``'s limit is dropped.
-_STEPS: dict[tuple, GraphedStep] = {}
+    one CUDA graph, on the CPU the same arithmetic run eagerly; ``group``
+    and ``dp`` as ``train_step`` takes them. A call is ``step(state,
+    real_mel, z=None, noise=None)``."""
+    return InPlaceStep(STAGE, cfg, device, group, dp)
 
 
 def graphed_step(cfg: PipelineConfig, shape, device: torch.device,
-                 group=None, dp: str = "shard_map") -> GraphedStep:
+                 group=None, dp: str = "shard_map") -> InPlaceStep:
     """The process's ``GraphedStep`` of ``cfg`` for batches of ``shape``
-    on ``device`` under the current ``_graphs.flags()``, and under
-    ``group`` in mode ``dp`` (every rank of the group must make the same
-    calls in the same order: ``state.cached_step``)."""
-    return cached_step(_STEPS, (cfg, tuple(shape), device, flags(),
-                                group_key(group, dp)),
-                       lambda: GraphedStep(cfg, device, group, dp))
+    on ``device`` (``train.state.step_for``)."""
+    return step_for(STAGE, cfg, shape, device, group, dp)
 
 
 def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
@@ -388,11 +312,6 @@ def train_step(cfg: PipelineConfig, state: GANState, real_mel, z=None,
     is donated to it (``GraphedStep``). On the CPU, and under a gloo
     group, the step runs eagerly and returns new tensors.
     """
-    dev = _device(state)
-    if enabled(dev) and graphable(group):
-        real = torch.as_tensor(real_mel, dtype=torch.float32)
-        new_state, metrics = graphed_step(cfg, real.shape, dev, group, dp)(
-            state, real, z, noise)
-    else:
-        new_state, metrics = _step(cfg, state, real_mel, z, noise, group, dp)
+    new_state, metrics = run_step(STAGE, cfg, state, real_mel,
+                                  {"z": z, "noise": noise}, group, dp)
     return new_state, _floats(metrics)

@@ -7,12 +7,13 @@ terms, optional frame-energy and phase terms), then the EMA of G. It
 returns the new ``GANState`` and the metrics of the JAX step, under the
 same keys, as Python floats.
 
-On a card the step replays one CUDA graph per config and batch shape
-(``GraphedStep``, the reference's jitted step, to which the state is
-donated), in a single process and on the ranks of an NCCL group, whose
-collectives the graph captures. Both sides of the warmup gate are one
-program: the gate, the noise sigma and Adam's scalars are 0-d tensors
-filled before each replay. ``train_step_many`` replays the graph K times
+The step runs on the engine of ``train/state.py`` (``stage``). On a card
+it replays one CUDA graph per config and batch shape (``GraphedStep``,
+the reference's jitted step, to which the state is donated), in a single
+process and on the ranks of an NCCL group, whose collectives the graph
+captures. Both sides of the warmup gate are one program: the gate, the
+noise sigma and Adam's scalars are 0-d tensors filled before each
+replay. ``train_step_many`` replays the graph K times
 and reads the metrics once. On the CPU, and on the ranks of a gloo group
 (whose collectives run on the host, where no graph can capture them), the
 same arithmetic runs eagerly and the old state is left as it was. The
@@ -27,8 +28,9 @@ names (``record_function`` regions, and in the graph timing events that
 the tracer reads per replay under the label ``stage2_step``);
 ``generator_fwd_g`` holds only the instance noise added to that one
 forward's output; under a group each gradient's all-reduce is the region
-``grad_allreduce`` (two per step, D's and G's). The host's work around a replay is in the spans
-``step.draws``, ``step.inputs``, ``graph.launch`` and ``step.read``.
+``grad_allreduce`` (two per step, D's and G's). The host's work around
+a replay is in the engine's spans ``step.draws``, ``step.inputs`` and
+``step.read``, and ``graph.launch``.
 
 The conditioning mel is computed inside the step, with no gradient: with
 ``cfg.train.use_pallas_frontend`` by the fused log-mel kernel
@@ -60,14 +62,10 @@ from __future__ import annotations
 
 import functools
 
-import numpy as np
 import torch
-import torch.distributed as dist
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from music_synthesis_tpu_torch._device import resolve_device
-from music_synthesis_tpu_torch._graphs import enabled, flags
 from music_synthesis_tpu_torch.config import PipelineConfig
 from music_synthesis_tpu_torch.losses.gan import (
     d_loss_fn,
@@ -85,21 +83,25 @@ from music_synthesis_tpu_torch.ops.logmel import fused_log_mel_for_vocoder
 from music_synthesis_tpu_torch.parallel import mesh
 from music_synthesis_tpu_torch.train.state import (
     AdamState,
+    Draws,
     GANState,
     InPlaceStep,
-    assign,
-    cached_step,
+    Stage,
+    _copy_generator,
+    _device,
+    _floats,
     global_norm,
     make_optimizer,
-    next_state,
+    new_state,
+    noise_scale,
+    reduce_metrics,
+    run_step,
+    step_for,
 )
-from music_synthesis_tpu_torch.utils.profiling import region, span
+from music_synthesis_tpu_torch.utils.profiling import region
 
-__all__ = ["make_models", "conditioning_mel", "make_train_state",
-           "noise_scale", "Draws", "reduce_metrics", "GraphedStep",
-           "graphed_step", "train_step", "train_step_many"]
-
-DP_MODES = ("jit", "shard_map")
+__all__ = ["make_models", "conditioning_mel", "make_train_state", "stage",
+           "GraphedStep", "graphed_step", "train_step", "train_step_many"]
 
 
 def make_models(cfg: PipelineConfig,
@@ -133,102 +135,13 @@ def make_train_state(cfg: PipelineConfig, seed: int | None = None,
     """Seeded G and D parameters, zeroed Adam states, step 0, on ``device``
     (``cuda`` unless told otherwise). ``seed`` defaults to
     ``cfg.train.seed``; the instance-noise generator is seeded with
-    ``seed + 1``."""
-    dev = resolve_device(device)
-    seed = cfg.train.seed if seed is None else seed
-    gen, disc = make_models(cfg, torch.Generator().manual_seed(seed))
-    g_params = {k: v.detach().to(dev) for k, v in gen.named_parameters()}
-    d_params = {k: v.detach().to(dev) for k, v in disc.named_parameters()}
-    t = cfg.train
-    return GANState(
-        step=0, g_params=g_params, d_params=d_params,
-        g_opt=make_optimizer(t.g_lr, t).init(g_params),
-        d_opt=make_optimizer(t.d_lr, t).init(d_params),
-        rng=torch.Generator(device=dev).manual_seed(seed + 1),
-        g_ema=({k: v.clone() for k, v in g_params.items()}
-               if t.ema_decay > 0 else None))
-
-
-def noise_scale(cfg: PipelineConfig, step: int) -> float:
-    """Instance-noise sigma at ``step``, in fp32 as the JAX step computes it:
-    ``d_input_noise * max(0, 1 - step / d_noise_decay_steps)``."""
-    t = cfg.train
-    s = np.float32(t.d_input_noise)
-    if t.d_noise_decay_steps > 0:
-        frac = np.float32(step) / np.float32(t.d_noise_decay_steps)
-        s = s * np.maximum(np.float32(0.0), np.float32(1.0) - frac)
-    return float(s)
-
-
-def _copy_generator(rng: torch.Generator) -> torch.Generator:
-    out = torch.Generator(device=rng.device)
-    out.set_state(rng.get_state())
-    return out
-
-
-class Draws:
-    """The step's random normals, ``normal(shape)`` for this rank's
-    ``shape``: from ``rng`` in a single process; under ``group`` with
-    ``dp="jit"`` the global batch's rows from ``rng`` (the same on every
-    rank), this rank's kept; with ``dp="shard_map"`` from a generator of
-    this rank's own, seeded (at the first draw) from one draw of ``rng``
-    and the rank. ``rng`` advances alike on every rank."""
-
-    def __init__(self, rng: torch.Generator, group=None,
-                 dp: str = "shard_map"):
-        if dp not in DP_MODES:
-            raise ValueError(f"dp must be one of {DP_MODES}, got {dp!r}")
-        self.rng, self.group, self.dp = rng, group, dp
-        self._own = None
-
-    def normal(self, shape) -> torch.Tensor:
-        dev = self.rng.device
-        if self.group is None:
-            return torch.randn(shape, generator=self.rng, device=dev)
-        if self.dp == "jit":
-            n = mesh.world_size(self.group)
-            full = torch.randn((shape[0] * n, *shape[1:]),
-                               generator=self.rng, device=dev)
-            return mesh.shard_batch(full, self.group)
-        if self._own is None:
-            seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.rng,
-                                     device=dev))
-            r = mesh.rank(self.group) + 1
-            self._own = torch.Generator(device=dev).manual_seed(
-                (seed + 0x9E3779B97F4A7C15 * r) % 2 ** 63)
-        return torch.randn(shape, generator=self._own, device=dev)
-
-
-def reduce_metrics(means: dict, fake2: torch.Tensor, real2: torch.Tensor,
-                   group, dp: str) -> dict:
-    """``means`` (the losses, each a mean over this rank's rows) and
-    ``g_rms_ratio`` from the mean squares of the fake and real batches,
-    averaged over the ranks of ``group``: the global batch's ratio for
-    ``dp="jit"``, the mean of the shards' ratios for ``"shard_map"``."""
-    def ratio(f2, r2):
-        return torch.sqrt((f2 + 1e-12) / (r2 + 1e-12))
-
-    if group is None:
-        return {**means, "g_rms_ratio": ratio(fake2, real2)}
-    keys = list(means)
-    vals = list(means.values())
-    if dp == "jit":
-        *vals, fake2, real2 = mesh.all_reduce_mean(vals + [fake2, real2],
-                                                   group)
-        out = dict(zip(keys, vals))
-        out["g_rms_ratio"] = ratio(fake2, real2)
-        return out
-    *vals, rms = mesh.all_reduce_mean(vals + [ratio(fake2, real2)], group)
-    return {**dict(zip(keys, vals)), "g_rms_ratio": rms}
+    ``seed + 1`` (``train.state.new_state``)."""
+    return new_state(cfg, make_models, seed, device)
 
 
 def _frame_rms(x: torch.Tensor, hop: int) -> torch.Tensor:
     f = x[:, : (x.shape[1] // hop) * hop].reshape(x.shape[0], -1, hop)
     return torch.sqrt(torch.mean(torch.square(f), -1) + 1e-8)
-
-
-def _device(state: GANState) -> torch.device:
-    return next(iter(state.g_params.values())).device
 
 
 def _gate_open(cfg: PipelineConfig, step: int) -> bool:
@@ -238,7 +151,7 @@ def _gate_open(cfg: PipelineConfig, step: int) -> bool:
 
 
 def _draws(cfg: PipelineConfig, state: GANState, dev: torch.device, shape,
-           noise, group=None, dp: str = "shard_map"):
+           noise=None, group=None, dp: str = "shard_map"):
     """``(rng, noise)``: with instance noise the step's three normals of
     the batch's ``shape`` on ``dev``, drawn from a copy of ``state.rng``
     (returned, advanced) where not given; ``noise`` is ``()`` without
@@ -262,19 +175,6 @@ def _scalars(cfg: PipelineConfig, state: GANState) -> list[float]:
             float(_gate_open(cfg, state.step)),
             *make_optimizer(t.g_lr, t).scalars(state.g_opt.count),
             *make_optimizer(t.d_lr, t).scalars(state.d_opt.count)]
-
-
-def _step(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
-          noise, precision: str, group=None, dp: str = "shard_map"):
-    """One D and one G update, eagerly; the metrics stay tensors on the
-    device."""
-    dev = _device(state)
-    wav = torch.as_tensor(wav, dtype=torch.float32, device=dev)
-    rng, noise = _draws(cfg, state, dev, wav.shape, noise, group, dp)
-    *new, metrics = _update(cfg, state, wav, noise, _scalars(cfg, state),
-                            precision, group, dp)
-    d_count = state.d_opt.count + _gate_open(cfg, state.step)
-    return next_state(state, rng, d_count, *new), metrics
 
 
 def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
@@ -440,106 +340,40 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
     return g_params, d_params, g_opt, d_opt, g_ema, out
 
 
-def _update_in_place(cfg: PipelineConfig, precision: str, state: GANState,
-                     wav: torch.Tensor, scalars: torch.Tensor,
-                     *noise: torch.Tensor, group=None,
-                     dp: str = "shard_map") -> dict:
-    """``_update`` on the 0-d tensors of ``scalars`` [8], its new values
-    written back into ``state``'s tensors; returns the metrics."""
-    *new, metrics = _update(cfg, state, wav, noise, scalars.unbind(),
-                            precision, group, dp)
-    assign(state, *new)
-    return metrics
+def stage(precision: str = "fast") -> Stage:
+    """The stage-2 step as the engine runs it (``train.state.Stage``), its
+    conditioning mel in the log-mel kernel's mode ``precision``: D's Adam
+    count moves only once the warmup gate is open."""
+    return Stage("stage2_step", _draws, _scalars, _update, _gate_open,
+                 (precision,))
 
 
-class GraphedStep(InPlaceStep):
+def GraphedStep(cfg: PipelineConfig, device: torch.device | str,
+                precision: str = "fast", group=None,
+                dp: str = "shard_map") -> InPlaceStep:
     """The step in place (``train.state.InPlaceStep``), for one config,
     batch shape and log-mel ``precision``: on a CUDA device one CUDA graph
     (the reference's ``jax.jit(train_step, donate_argnums=1)``), R1's
-    double backward and the log-mel kernel's launch inside it; on the CPU
-    the same arithmetic run eagerly. The instance noise is drawn eagerly
-    from the state's generator, in the functional step's order, and the
-    per-step scalars (the noise sigma, the warmup gate, each Adam's
-    learning rate and bias corrections) are filled into 0-d fp32 tensors
-    before each call, so a call computes what ``_step`` computes, draw for
-    draw, on both sides of the gate.
+    double backward and the log-mel kernel's launch inside it, both sides
+    of the warmup gate in one program (the gate is one of its per-step
+    scalars); on the CPU the same arithmetic run eagerly. A call is
+    ``step(state, wav, noise=None)``.
 
     ``group`` and ``dp``: the data-parallel step (the reference's
     ``make_dp_stage2_step`` / ``make_shardmap_stage2_step`` programs). Its
     draws, the shard_map seeding's host read among them, stay eager; the
     gradient all-reduces, the losses' cross-rank sums and the metrics'
-    means are in the graph, which NCCL's collectives allow and gloo's,
-    which run on the host, do not (``parallel.mesh.graphable``): a gloo
-    group on a card is refused here. A capture that fails raises.
+    means are in the graph.
     """
-
-    def __init__(self, cfg: PipelineConfig, device: torch.device | str,
-                 precision: str = "fast", group=None, dp: str = "shard_map"):
-        device = torch.device(device)
-        if device.type == "cuda" and not mesh.graphable(group):
-            raise ValueError("a CUDA graph cannot capture the collectives "
-                             f"of a {dist.get_backend(group)} group")
-        super().__init__(functools.partial(_update_in_place, cfg, precision,
-                                           group=group, dp=dp), device,
-                         "stage2_step")
-        self.cfg, self.group, self.dp = cfg, group, dp
-
-    def __call__(self, state: GANState, wav, noise=None
-                 ) -> tuple[GANState, dict[str, torch.Tensor]]:
-        """One step from ``state`` on ``wav`` (``noise`` as in
-        ``train_step``); the metrics stay tensors (the graph's buffers on
-        the card: read them before the next call)."""
-        wav = torch.as_tensor(wav, dtype=torch.float32)
-        with span("step.draws"):
-            rng, noise = _draws(self.cfg, state, self.device, wav.shape,
-                                noise, self.group, self.dp)
-        with span("step.inputs"):
-            scalars = torch.tensor(_scalars(self.cfg, state),
-                                   dtype=torch.float32)
-            launch = self.load(state, wav, scalars, *noise)
-        metrics = launch()
-        d_count = state.d_opt.count + _gate_open(self.cfg, state.step)
-        return self.advanced(state, rng, d_count), metrics
-
-
-#: The graphed steps of this process, by (config, batch shape, device,
-#: log-mel precision, ``_graphs.flags()``, ``parallel.mesh.group_key``);
-#: the oldest beyond ``cached_step``'s limit is dropped.
-_STEPS: dict[tuple, GraphedStep] = {}
+    return InPlaceStep(stage(precision), cfg, device, group, dp)
 
 
 def graphed_step(cfg: PipelineConfig, shape, device: torch.device,
                  precision: str = "fast", group=None,
-                 dp: str = "shard_map") -> GraphedStep:
+                 dp: str = "shard_map") -> InPlaceStep:
     """The process's ``GraphedStep`` of ``cfg`` for batches of ``shape``
-    on ``device`` under the current ``_graphs.flags()``, and under
-    ``group`` in mode ``dp`` (every rank of the group must make the same
-    calls in the same order: ``state.cached_step``)."""
-    return cached_step(_STEPS, (cfg, tuple(shape), device, precision,
-                                flags(), mesh.group_key(group, dp)),
-                       lambda: GraphedStep(cfg, device, precision, group, dp))
-
-
-def _run_step(cfg: PipelineConfig, state: GANState, wav, noise=None,
-              precision: str = "fast", group=None, dp: str = "shard_map"):
-    """One step with its metrics left on the device: on a card, in a
-    single process or under an NCCL group, it replays ``graphed_step``'s
-    graph (``state`` is donated to it); otherwise (the CPU, a gloo group)
-    it runs eagerly (``_step``)."""
-    dev = _device(state)
-    if enabled(dev) and mesh.graphable(group):
-        wav = torch.as_tensor(wav, dtype=torch.float32)
-        return graphed_step(cfg, wav.shape, dev, precision, group, dp)(
-            state, wav, noise)
-    return _step(cfg, state, wav, noise, precision, group, dp)
-
-
-def _floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
-    """Every metric as a Python float, with one device synchronisation
-    (the ``step.read`` span)."""
-    with span("step.read"):
-        values = torch.stack([v.float() for v in metrics.values()]).tolist()
-    return dict(zip(metrics, values))
+    on ``device`` (``train.state.step_for``)."""
+    return step_for(stage(precision), cfg, shape, device, group, dp)
 
 
 def train_step(cfg: PipelineConfig, state: GANState, wav,
@@ -561,8 +395,8 @@ def train_step(cfg: PipelineConfig, state: GANState, wav,
     is donated to it (``GraphedStep``). On the CPU, and under a gloo
     group, the step runs eagerly and returns new tensors.
     """
-    new_state, metrics = _run_step(cfg, state, wav, noise, precision, group,
-                                   dp)
+    new_state, metrics = run_step(stage(precision), cfg, state, wav,
+                                  {"noise": noise}, group, dp)
     return new_state, _floats(metrics)
 
 
@@ -580,7 +414,7 @@ def train_step_many(cfg: PipelineConfig, state: GANState, wavs, noise=None,
     if len(wavs) == 0:
         raise ValueError("train_step_many needs at least one batch")
     for i, wav in enumerate(wavs):
-        state, metrics = _run_step(
-            cfg, state, wav, None if noise is None else noise[i],
-            group=group, dp=dp)
+        state, metrics = run_step(
+            stage(), cfg, state, wav,
+            {"noise": None if noise is None else noise[i]}, group, dp)
     return state, _floats(metrics)

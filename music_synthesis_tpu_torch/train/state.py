@@ -1,4 +1,5 @@
-"""GAN training state and optimizer (counterpart of ``train/state.py``).
+"""GAN training state, optimizer and the step engine of both GAN stages
+(counterpart of ``train/state.py``).
 
 ``GANState`` holds both players' parameters (name -> tensor dicts in the
 Flax tree's flattened names, as ``convert.to_state_dict`` gives them), both
@@ -16,25 +17,44 @@ scalars they give are rounded to fp32 as optax computes them
 (``Adam.scalars``), and a step captured as a CUDA graph reads them from 0-d
 device tensors filled before each replay.
 
-``InPlaceStep`` is what both stages' ``GraphedStep`` share: the state
-donated into buffers the step owns, updated in place by one CUDA graph on
-a card, by the same arithmetic run eagerly on the CPU.
+The step engine runs both stages' steps (``train/stage1.py``,
+``train/stage2.py``), each given as a ``Stage``. ``run`` is the one
+sequence of a step (draws, scalars, update, D's Adam count, next state),
+functional or in place on an ``InPlaceStep``'s buffers (one CUDA graph on
+a card); ``run_step`` chooses between the two and caches the in-place
+steps (``step_for``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from music_synthesis_tpu_torch._graphs import GraphedProgram
-from music_synthesis_tpu_torch.config import TrainConfig
+from music_synthesis_tpu_torch._device import resolve_device
+# drop_graphed_steps is re-exported: the benchmark's drivers import it here.
+from music_synthesis_tpu_torch._graphs import (
+    GraphedProgram,
+    cached_step,
+    drop_graphed_steps,
+    enabled,
+    flags,
+)
+from music_synthesis_tpu_torch.config import PipelineConfig, TrainConfig
+from music_synthesis_tpu_torch.parallel import mesh
+from music_synthesis_tpu_torch.parallel.mesh import graphable, group_key
+from music_synthesis_tpu_torch.utils.profiling import span
 
 __all__ = ["AdamState", "GANState", "Adam", "make_optimizer", "global_norm",
-           "state_groups", "assign", "next_state", "InPlaceStep",
-           "cached_step", "drop_graphed_steps"]
+           "state_groups", "assign", "noise_scale", "Draws",
+           "reduce_metrics", "Stage", "new_state", "InPlaceStep", "run",
+           "run_step", "step_for", "drop_graphed_steps"]
+
+DP_MODES = ("jit", "shard_map")
 
 
 @dataclasses.dataclass
@@ -185,45 +205,175 @@ def _fresh(state: GANState) -> GANState:
         state.rng, empty(state.g_ema))
 
 
-def next_state(state: GANState, rng: torch.Generator, d_count: int,
-               g_params, d_params, g_opt: AdamState, d_opt: AdamState,
-               g_ema) -> GANState:
-    """The state after a step from ``state``: new tensors in the layouts of
-    ``state``'s holding the step's results (which come in the layouts of
-    their gradients: a weight norm's sum over a parameter rounds by the
-    parameter's strides, so a state whose layouts drifted from step to step
-    would not round as the in-place step's fixed buffers do), the step and
-    G's Adam count one further, D's Adam count ``d_count``."""
-    out = _fresh(state)
-    assign(out, g_params, d_params, g_opt, d_opt, g_ema)
-    out.step, out.rng = state.step + 1, rng
-    out.g_opt.count, out.d_opt.count = state.g_opt.count + 1, d_count
+def noise_scale(cfg: PipelineConfig, step: int) -> float:
+    """Instance-noise sigma at ``step``, in fp32 as the JAX step computes it:
+    ``d_input_noise * max(0, 1 - step / d_noise_decay_steps)``."""
+    t = cfg.train
+    s = np.float32(t.d_input_noise)
+    if t.d_noise_decay_steps > 0:
+        frac = np.float32(step) / np.float32(t.d_noise_decay_steps)
+        s = s * np.maximum(np.float32(0.0), np.float32(1.0) - frac)
+    return float(s)
+
+
+def _copy_generator(rng: torch.Generator) -> torch.Generator:
+    out = torch.Generator(device=rng.device)
+    out.set_state(rng.get_state())
     return out
 
 
-class InPlaceStep:
-    """A single-process training step in place, for one config and batch
-    shape on one device: on a CUDA device one CUDA graph of ``body`` (the
-    reference's ``jax.jit(train_step, donate_argnums=1)``), timed by the
-    tracer under ``label`` (``utils.profiling``), on the CPU ``body`` run
-    eagerly.
+class Draws:
+    """The step's random normals, ``normal(shape)`` for this rank's
+    ``shape``: from ``rng`` in a single process; under ``group`` with
+    ``dp="jit"`` the global batch's rows from ``rng`` (the same on every
+    rank), this rank's kept; with ``dp="shard_map"`` from a generator of
+    this rank's own, seeded (at the first draw) from one draw of ``rng``
+    and the rank. ``rng`` advances alike on every rank."""
 
-    ``body(buffers, *inputs)`` updates the state ``buffers`` in place and
-    returns the metrics, tensors. The state's tensors live in buffers this
-    object owns: ``load`` copies the given state into them, unless it is
-    the state the last call returned. So, as with the reference's donated
-    state, a state is no longer valid once a later step has run from it or
-    from any state of the same buffers: copy what must outlive the step.
-    On a card the inputs go to the device without a host synchronisation,
-    so steps run back to back until their metrics are read.
+    def __init__(self, rng: torch.Generator, group=None,
+                 dp: str = "shard_map"):
+        if dp not in DP_MODES:
+            raise ValueError(f"dp must be one of {DP_MODES}, got {dp!r}")
+        self.rng, self.group, self.dp = rng, group, dp
+        self._own = None
+
+    def normal(self, shape) -> torch.Tensor:
+        dev = self.rng.device
+        if self.group is None:
+            return torch.randn(shape, generator=self.rng, device=dev)
+        if self.dp == "jit":
+            n = mesh.world_size(self.group)
+            full = torch.randn((shape[0] * n, *shape[1:]),
+                               generator=self.rng, device=dev)
+            return mesh.shard_batch(full, self.group)
+        if self._own is None:
+            seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.rng,
+                                     device=dev))
+            r = mesh.rank(self.group) + 1
+            self._own = torch.Generator(device=dev).manual_seed(
+                (seed + 0x9E3779B97F4A7C15 * r) % 2 ** 63)
+        return torch.randn(shape, generator=self._own, device=dev)
+
+
+def reduce_metrics(means: dict, fake2: torch.Tensor, real2: torch.Tensor,
+                   group, dp: str) -> dict:
+    """``means`` (the losses, each a mean over this rank's rows) and
+    ``g_rms_ratio`` from the mean squares of the fake and real batches,
+    averaged over the ranks of ``group``: the global batch's ratio for
+    ``dp="jit"``, the mean of the shards' ratios for ``"shard_map"``."""
+    def ratio(f2, r2):
+        return torch.sqrt((f2 + 1e-12) / (r2 + 1e-12))
+
+    if group is None:
+        return {**means, "g_rms_ratio": ratio(fake2, real2)}
+    keys = list(means)
+    vals = list(means.values())
+    if dp == "jit":
+        *vals, fake2, real2 = mesh.all_reduce_mean(vals + [fake2, real2],
+                                                   group)
+        out = dict(zip(keys, vals))
+        out["g_rms_ratio"] = ratio(fake2, real2)
+        return out
+    *vals, rms = mesh.all_reduce_mean(vals + [ratio(fake2, real2)], group)
+    return {**dict(zip(keys, vals)), "g_rms_ratio": rms}
+
+
+def _device(state: GANState) -> torch.device:
+    return next(iter(state.g_params.values())).device
+
+
+def _floats(metrics: dict[str, torch.Tensor]) -> dict[str, float]:
+    """Every metric as a Python float, with one device synchronisation
+    (the ``step.read`` span)."""
+    with span("step.read"):
+        values = torch.stack([v.float() for v in metrics.values()]).tolist()
+    return dict(zip(metrics, values))
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    """What one GAN stage gives the engine: its tracer ``label``;
+    ``draws(cfg, state, dev, shape, group=, dp=, **given)`` -> ``(rng,
+    draws)``, a copy of ``state.rng`` advanced past the draws, and the
+    draws on ``dev`` (``given``: its ``train_step``'s keywords in place of
+    any); ``scalars(cfg, state)``, the per-step fp32 scalars;
+    ``update(cfg, state, batch, draws, scalars, *static, group=, dp=)`` ->
+    ``(g_params, d_params, g_opt, d_opt, g_ema, metrics)``, new tensors
+    and no host read, the scalars floats or 0-d tensors; ``d_updates(cfg,
+    step)``, D's Adam updates in the step; ``static``, more of the
+    update's arguments (stage 2's log-mel precision)."""
+
+    label: str
+    draws: Callable
+    scalars: Callable
+    update: Callable
+    d_updates: Callable[[PipelineConfig, int], int]
+    static: tuple = ()
+
+
+def new_state(cfg: PipelineConfig, make_models, seed: int | None,
+              device) -> GANState:
+    """The state at step 0 of the players ``make_models(cfg, generator)``
+    gives, seeded with ``seed`` (``cfg.train.seed`` if None), zeroed Adam
+    states, on ``device`` (``cuda`` unless told otherwise); the state's
+    generator is seeded with ``seed + 1``."""
+    dev = resolve_device(device)
+    seed = cfg.train.seed if seed is None else seed
+    gen, disc = make_models(cfg, torch.Generator().manual_seed(seed))
+    g_params = {k: v.detach().to(dev) for k, v in gen.named_parameters()}
+    d_params = {k: v.detach().to(dev) for k, v in disc.named_parameters()}
+    t = cfg.train
+    return GANState(
+        step=0, g_params=g_params, d_params=d_params,
+        g_opt=make_optimizer(t.g_lr, t).init(g_params),
+        d_opt=make_optimizer(t.d_lr, t).init(d_params),
+        rng=torch.Generator(device=dev).manual_seed(seed + 1),
+        g_ema=({k: v.clone() for k, v in g_params.items()}
+               if t.ema_decay > 0 else None))
+
+
+class InPlaceStep:
+    """``stage``'s step in place, for one config and batch shape on one
+    device, under ``group`` in mode ``dp`` as the stage's ``train_step``
+    takes them: on a CUDA device one CUDA graph of the update (the
+    reference's ``jax.jit(train_step, donate_argnums=1)``), timed by the
+    tracer under ``stage.label``, its collectives captured (NCCL's; a
+    card under gloo is refused); on the CPU the same arithmetic run
+    eagerly. ``step(state, batch, **given)`` is ``run`` on the buffers.
+
+    The state's tensors live in buffers this object owns: ``load`` copies
+    the given state into them, unless it is the state the last call
+    returned. So, as with the reference's donated state, a state is no
+    longer valid once a later step has run from it or from any state of
+    the same buffers: copy what must outlive the step. On a card the
+    inputs go to the device without a host synchronisation, so steps run
+    back to back until their metrics (the graph's buffers) are read.
     """
 
-    def __init__(self, body, device: torch.device | str, label: str):
-        self.body = body
+    def __init__(self, stage: Stage, cfg: PipelineConfig,
+                 device: torch.device | str, group=None,
+                 dp: str = "shard_map"):
         self.device = torch.device(device)
-        self.label = label
+        _graphed(self.device, group, refuse=True)
+        self.stage, self.cfg, self.group, self.dp = stage, cfg, group, dp
         self.buffers: GANState | None = None
         self.program = None
+
+    def __call__(self, state: GANState, batch, **given
+                 ) -> tuple[GANState, dict[str, torch.Tensor]]:
+        return run(self.stage, self.cfg, state, batch, given, self.group,
+                   self.dp, self)
+
+    def _body(self, buffers: GANState, batch: torch.Tensor,
+              scalars: torch.Tensor, *draws: torch.Tensor) -> dict:
+        """The update on the 0-d tensors of ``scalars``, its new values
+        written back into ``buffers``' tensors; returns the metrics (what
+        the graph captures)."""
+        *new, metrics = self.stage.update(
+            self.cfg, buffers, batch, draws, scalars.unbind(),
+            *self.stage.static, group=self.group, dp=self.dp)
+        assign(buffers, *new)
+        return metrics
 
     def _adopt(self, state: GANState) -> GANState:
         if self.buffers is None:
@@ -236,64 +386,109 @@ class InPlaceStep:
                                          [given[k] for k in buf])
         return self.buffers
 
-    def load(self, state: GANState, *inputs: torch.Tensor):
-        """Adopts ``state`` into the buffers and ``inputs`` into the step;
-        returns the call that runs ``body`` on them (the graph's replay on
-        a card, whose metrics are the graph's buffers: read them before
-        the next call)."""
+    def load(self, state: GANState, batch: torch.Tensor, scalars,
+             *draws: torch.Tensor):
+        """Adopts ``state`` into the buffers, and ``batch``, the floats
+        ``scalars`` and ``draws`` into the step; returns the call that
+        runs the update on them (the graph's replay on a card, whose
+        metrics are the graph's buffers: read them before the next
+        call)."""
         buffers = self._adopt(state)
+        inputs = [batch, torch.tensor(scalars, dtype=torch.float32), *draws]
         if self.device.type != "cuda":
-            return functools.partial(self.body, buffers, *(
+            return functools.partial(self._body, buffers, *(
                 a.to(self.device) for a in inputs))
         inputs = [a if a.is_cuda else
                   a.pin_memory().to(self.device, non_blocking=True)
                   for a in inputs]
         if self.program is None:
             self.program = GraphedProgram(
-                functools.partial(self.body, buffers), self.device,
+                functools.partial(self._body, buffers), self.device,
                 mutates=[t for g in state_groups(buffers) for t in g.values()],
-                label=self.label)
+                label=self.stage.label)
         self.program.load(*inputs)
         return self.program.replay
 
-    def advanced(self, state: GANState, rng: torch.Generator,
-                 d_count: int) -> GANState:
-        """The buffers as the state after a step from ``state``: its step
-        and G's Adam count one further, D's Adam count ``d_count``."""
-        b = self.buffers
-        return dataclasses.replace(
-            b, step=state.step + 1, rng=rng,
-            g_opt=AdamState(state.g_opt.count + 1, b.g_opt.mu, b.g_opt.nu),
-            d_opt=AdamState(d_count, b.d_opt.mu, b.d_opt.nu))
+
+def run(stage: Stage, cfg: PipelineConfig, state: GANState, batch,
+        given: dict | None = None, group=None, dp: str = "shard_map",
+        in_place: InPlaceStep | None = None
+        ) -> tuple[GANState, dict[str, torch.Tensor]]:
+    """One step of ``stage`` from ``state`` on ``batch``, its metrics left
+    on the device: the draws (``given`` in place of any), the per-step
+    scalars, the update, D's Adam count and the next state: the step and
+    G's Adam count one further. Eagerly and functionally without
+    ``in_place`` (``state`` is left as it was), else on its buffers."""
+    dev = _device(state) if in_place is None else in_place.device
+    batch = torch.as_tensor(batch, dtype=torch.float32,
+                            device=dev if in_place is None else None)
+    with span("step.draws"):
+        rng, draws = stage.draws(cfg, state, dev, batch.shape, group=group,
+                                 dp=dp, **(given or {}))
+    with span("step.inputs"):
+        scalars = stage.scalars(cfg, state)
+        if in_place is not None:
+            launch = in_place.load(state, batch, scalars, *draws)
+    if in_place is None:
+        *new, metrics = stage.update(cfg, state, batch, draws, scalars,
+                                     *stage.static, group=group, dp=dp)
+        # New tensors in the layouts of ``state``'s: the results come in
+        # the layouts of their gradients, and a weight norm's sum over a
+        # parameter rounds by the parameter's strides, so a state whose
+        # layouts drifted from step to step would not round as the
+        # in-place step's fixed buffers do.
+        out = _fresh(state)
+        assign(out, *new)
+    else:
+        out, metrics = in_place.buffers, launch()
+    d_count = state.d_opt.count + stage.d_updates(cfg, state.step)
+    return dataclasses.replace(
+        out, step=state.step + 1, rng=rng,
+        g_opt=AdamState(state.g_opt.count + 1, out.g_opt.mu, out.g_opt.nu),
+        d_opt=AdamState(d_count, out.d_opt.mu, out.d_opt.nu)), metrics
 
 
-#: Every cache of steps that ``cached_step`` has filled in this process.
-_CACHES: list[dict] = []
+def _graphed(device: torch.device, group, refuse: bool = False) -> bool:
+    """Whether a step on ``device`` under ``group`` replays its CUDA
+    graph: on a card (``_graphs.enabled``), alone or under NCCL
+    (``parallel.mesh.graphable``: gloo's collectives run on the host, where
+    no graph can hold them, so its steps run eagerly). With ``refuse``, a
+    card under gloo raises."""
+    ok = graphable(group)
+    if refuse and not ok and device.type == "cuda":
+        raise ValueError("a CUDA graph cannot capture the collectives of a "
+                         f"{dist.get_backend(group)} group")
+    return ok and enabled(device)
 
 
-def cached_step(steps: dict, key, make, limit: int = 4):
-    """``steps[key]``, made by ``make()`` if missing; the oldest entries
-    beyond ``limit`` are dropped (with their graphs and pools).
-
-    A data-parallel step's graph holds its group's collectives, so the
-    ranks must build (warm up and capture), replay and drop their graphs
-    in the same order: each rank calls the same steps with the same keys
-    in the same order, or the collectives of one rank's warm-up or replay
-    pair with another's of another program and hang."""
-    if not any(c is steps for c in _CACHES):
-        _CACHES.append(steps)
-    step = steps.pop(key, None) or make()
-    steps[key] = step
-    while len(steps) > limit:
-        del steps[next(iter(steps))]
-    return step
+#: The in-place steps of this process: a ``_graphs.cached_step`` cache per
+#: stage label, keyed by (stage, config, batch shape, device,
+#: ``_graphs.flags()``, ``parallel.mesh.group_key``).
+_STEPS: dict[str, dict[tuple, InPlaceStep]] = {}
 
 
-def drop_graphed_steps() -> None:
-    """Drops every step that ``cached_step`` holds in this process, with
-    its graph and pool (``parallel.mesh.leave`` calls it before the group
-    is destroyed), after the card has run every replay it was given."""
-    if torch.cuda.is_initialized():
-        torch.cuda.synchronize()
-    for steps in _CACHES:
-        steps.clear()
+def step_for(stage: Stage, cfg: PipelineConfig, shape,
+             device: torch.device, group=None,
+             dp: str = "shard_map") -> InPlaceStep:
+    """The process's ``InPlaceStep`` of ``stage`` and ``cfg`` for batches
+    of ``shape`` on ``device`` under the current ``_graphs.flags()``, and
+    under ``group`` in mode ``dp``."""
+    return cached_step(
+        _STEPS.setdefault(stage.label, {}),
+        (stage, cfg, tuple(shape), device, flags(), group_key(group, dp)),
+        lambda: InPlaceStep(stage, cfg, device, group, dp))
+
+
+def run_step(stage: Stage, cfg: PipelineConfig, state: GANState, batch,
+             given: dict | None = None, group=None, dp: str = "shard_map"
+             ) -> tuple[GANState, dict[str, torch.Tensor]]:
+    """One step with its metrics left on the device: on a card, in a
+    single process or under an NCCL group, the replay of ``step_for``'s
+    graph (``state`` is donated to it); otherwise (the CPU, a gloo group,
+    ``disable_graphs``) eagerly and functionally (``run``)."""
+    dev = _device(state)
+    if not _graphed(dev, group):
+        return run(stage, cfg, state, batch, given, group, dp)
+    batch = torch.as_tensor(batch, dtype=torch.float32)
+    return run(stage, cfg, state, batch, given, group, dp,
+               step_for(stage, cfg, batch.shape, dev, group, dp))

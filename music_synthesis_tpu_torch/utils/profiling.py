@@ -29,11 +29,12 @@ themselves, unprofiled:
   time between two eager events around the replay (``replay_ms``), with
   each region's ms. A label's counters (``captures``, ``replays``,
   ``unread``, and each of ``COUNTERS``, the calls its last capture
-  issued, which each replay repeats: ``grouped_wgrad2``, the
-  second-order weight terms of grouped convolutions, and ``aa_act``, the
-  anti-aliased activations) and a ring of its last ``RING`` replays are
-  ``tracer.snapshot()``'s, with the process-wide counts under
-  ``counters``.
+  issued, which each replay repeats: ``logmel_kernel``, the log-mel
+  kernel's launches, ``grouped_wgrad2``, the second-order weight terms of
+  grouped convolutions, ``aa_act``, the anti-aliased activations, and
+  ``aa_act_kernel``, their kernel's launches) and a ring of its last
+  ``RING`` replays are ``tracer.snapshot()``'s, with the process-wide
+  counts under ``counters``.
 - **The tracer never synchronises.** A replay's device times are read at
   the program's next replay, or when the tracer is read, and only when its
   end event says it has ended (``query``); a replay still running at its

@@ -70,6 +70,7 @@ from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.scripts import bench_rtf_batch, bench_serve
 from music_synthesis_tpu_torch.serve import SynthService
 from music_synthesis_tpu_torch.train import stage2
+from music_synthesis_tpu_torch.train.state import run
 
 from torch_tiny_ref import ISTFT, jitter
 
@@ -482,7 +483,7 @@ def test_stage2_step_flops_against_the_jaxpr_walk(tiny_step):
     assert abs(conv - walk["conv"]) <= 0.05 * walk["conv"], (conv, walk)
     # The gap, exactly: the same step over real taps, plus the JAX step's
     # second G forward.
-    real = _conv(port_flops(lambda: stage2._step(cfg, st, wav, None, "fast"),
+    real = _conv(port_flops(lambda: run(stage2.stage("fast"), cfg, st, wav),
                             REAL_TAPS))
     assert real + tiny_step["g_walk"]["conv"] == walk["conv"]
 

@@ -81,7 +81,7 @@ def _signal(shape, seed=0):
 def test_kernel_matches_plain(cuda, kw, shape, precision):
     cfg = FrontendConfig(**kw)
     wav = _signal(shape).to(cuda)
-    before = L.logmel_kernel.n_launches
+    before = L.logmel_launches.n_calls
     for fused, plain in ((L.fused_log_mel, L.log_mel_plain),
                          (L.fused_log_mel_for_vocoder,
                           L.log_mel_for_vocoder_plain)):
@@ -93,7 +93,7 @@ def test_kernel_matches_plain(cuda, kw, shape, precision):
         # The same function as the CPU's plain version.
         torch.testing.assert_close(got.cpu(), plain(wav.cpu(), cfg),
                                    rtol=TOL, atol=TOL)
-    assert L.logmel_kernel.n_launches == before + 2
+    assert L.logmel_launches.n_calls == before + 2
 
 
 @pytest.mark.parametrize("split", L.SPLITS)
@@ -130,9 +130,9 @@ def test_kernel_in_a_cuda_graph_matches_eager(cuda, precision):
         lambda x: L.fused_log_mel_for_vocoder(x, cfg, precision), cuda)
     for seed in (2, 3, 4):
         wav = _signal((16, 8192), seed=seed).to(cuda)
-        before = L.logmel_kernel.n_launches
+        before = L.logmel_launches.n_calls
         got = program(wav).clone()
-        assert L.logmel_kernel.n_launches == before + 1
+        assert L.logmel_launches.n_calls == before + 1
         want = L.fused_log_mel_for_vocoder(wav, cfg, precision)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
@@ -157,10 +157,10 @@ def test_copy_synthesis_on_the_card_matches_cpu(cuda):
     gpu = CopySynthesizer("vocoder_istft", compute_dtype="float32")
     cpu = CopySynthesizer("vocoder_istft", device="cpu",
                           compute_dtype="float32")
-    before = L.logmel_kernel.n_launches
+    before = L.logmel_launches.n_calls
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         y_gpu, d_gpu = gpu(wav)
-    assert L.logmel_kernel.n_launches == before + 1
+    assert L.logmel_launches.n_calls == before + 1
     y_cpu, d_cpu = cpu(wav)
     torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=2e-3, atol=2e-3)
     assert abs(d_gpu - d_cpu) < 1e-3
@@ -229,9 +229,9 @@ def test_tiny_train_step_on_the_card_matches_cpu(cuda):
         finally:
             torch.backends.cuda.matmul.allow_tf32 = matmul
 
-    before = L.logmel_kernel.n_launches
+    before = L.logmel_launches.n_calls
     new, m_gpu = card_step(False)
-    assert L.logmel_kernel.n_launches == before + 1
+    assert L.logmel_launches.n_calls == before + 1
     assert new.step == 1 and new.g_params["conv_in.v"].is_cuda
     _, m_cpu = stage2.train_step(cfg, state("cpu"), wav, noise=noise)
     assert m_gpu.keys() == m_cpu.keys()
@@ -280,9 +280,9 @@ def test_tiny_stage1_step_on_the_card_matches_cpu(cuda):
         finally:
             torch.backends.cuda.matmul.allow_tf32 = matmul
 
-    before = L.logmel_kernel.n_launches
+    before = L.logmel_launches.n_calls
     new, m_gpu = card_step(False)
-    assert L.logmel_kernel.n_launches == before  # stage 1 runs no kernel
+    assert L.logmel_launches.n_calls == before  # stage 1 runs no kernel
     assert new.step == 1 and new.d_params["conv_out.v"].is_cuda
     _, m_cpu = stage1.train_step(cfg, state("cpu"), mel, z=z, noise=noise)
     assert m_gpu.keys() == m_cpu.keys()
@@ -476,9 +476,9 @@ def test_extract_features_on_the_card_matches_plain(cuda, tmp_path):
     from music_synthesis_tpu_torch.utils.wav import load_wav
 
     clip = make_synthetic_corpus(tmp_path, n_clips=1, seconds=4.0)[0]
-    before = L.logmel_kernel.n_launches
+    before = L.logmel_launches.n_calls
     got = extract_features.main([str(clip), "--out", str(tmp_path / "m.npy")])
-    assert L.logmel_kernel.n_launches == before + 1
+    assert L.logmel_launches.n_calls == before + 1
     cfg = FRONTEND_CPU_CLIP.frontend
     wav = torch.from_numpy(load_wav(clip, cfg.sample_rate))[None].to(cuda)
     padded, n_frames = L.padded_input(wav, cfg, False)

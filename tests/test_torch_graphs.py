@@ -45,7 +45,8 @@ from music_synthesis_tpu_torch.infer.copy_synthesis import copy_synthesis
 from music_synthesis_tpu_torch.infer.stream import make_stream_fns
 from music_synthesis_tpu_torch.losses.stft_loss import multires_stft_loss
 from music_synthesis_tpu_torch.train import stage1, stage2
-from music_synthesis_tpu_torch.train.state import state_groups
+from music_synthesis_tpu_torch.train import state as engine
+from music_synthesis_tpu_torch.train.state import noise_scale, state_groups
 from test_torch_stage1 import (
     FLAGSHIP,
     PRE_STEPS,
@@ -94,7 +95,7 @@ def test_graphed_step_form_equals_functional_step_bit_for_bit():
     step = stage1.GraphedStep(cfg, "cpu")
     sigmas = []
     for _ in range(3):
-        sigmas.append(stage2.noise_scale(cfg, functional.step))
+        sigmas.append(noise_scale(cfg, functional.step))
         functional, want = stage1.train_step(cfg, functional, mel)
         inplace, got = step(inplace, mel)
         assert list(got) == list(want)
@@ -222,10 +223,11 @@ def test_stage1_body_makes_no_host_read():
     _, cfg = configs(MOVING)
     st = stage1.make_train_state(cfg, seed=1, device="cpu")
     real = torch.from_numpy(real_mel())
-    _, z, noise = stage1._draws(cfg, st, real.device, real.shape, None, None)
+    _, draws = stage1._draws(cfg, st, real.device, real.shape, None, None)
     scalars = torch.tensor(stage1._scalars(cfg, st))
     with NoHostReads():
-        metrics = stage1._update_in_place(cfg, st, real, z, scalars, *noise)
+        metrics = stage1.GraphedStep(cfg, "cpu")._body(st, real, scalars,
+                                                       *draws)
     assert set(metrics) >= {"d_loss", "g_loss", "d_r1", "g_flux"}
 
 
@@ -263,4 +265,4 @@ def test_single_process_train_step_stays_functional_on_the_cpu():
     st = stage1.make_train_state(cfg, seed=2, device="cpu")
     new, _ = stage1.train_step(cfg, st, real_mel())
     assert new.g_params is not st.g_params
-    assert stage1._STEPS == {}
+    assert not engine._STEPS.get(stage1.STAGE.label)

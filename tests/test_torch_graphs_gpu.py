@@ -60,7 +60,7 @@ from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
 from music_synthesis_tpu_torch.models.vocoder import Vocoder
 from music_synthesis_tpu_torch.ops.alias_free import aa_act, aa_act_kernel
 from music_synthesis_tpu_torch.ops.conv import grouped_wgrad2
-from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+from music_synthesis_tpu_torch.ops.logmel import logmel_launches
 from music_synthesis_tpu_torch.train import stage1, stage2
 from music_synthesis_tpu_torch.train.state import (
     drop_graphed_steps,
@@ -158,17 +158,17 @@ def test_copy_synthesis_graph_launches_the_kernel_once_per_replay(pair, cuda):
         return programs("copy", lambda x: copy_synthesis(
             voc, x, CFG.frontend, CFG.mel_scaler), wav)
 
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     _graphed_within_eager_gap(call)
     # 3 eager calls, then the build (not counted) and 2 replays.
-    assert logmel_kernel.n_launches == before + 5
+    assert logmel_launches.n_calls == before + 5
     program, = programs.programs.values()
-    assert program.launches_per_replay == 1
-    before = logmel_kernel.n_launches
+    assert program.counts_per_replay["logmel_kernel"] == 1
+    before = logmel_launches.n_calls
     with torch.inference_mode():
         for _ in range(10):
             call()
-    assert logmel_kernel.n_launches == before + 10
+    assert logmel_launches.n_calls == before + 10
 
 
 def test_graph_keys_follow_the_tf32_switch(pair, cuda):
@@ -268,15 +268,16 @@ def test_stage2_flagship_graphed_step_matches_eager(cuda):
         with (contextlib.nullcontext() if graphs
               else _graphs.disable_graphs()):
             for step in (0, t.g_warmup_steps):  # both sides of the gate
-                before = logmel_kernel.n_launches
+                before = logmel_launches.n_calls
                 st, m = stage2.train_step(
                     cfg, dataclasses.replace(st, step=step), wav)
-                assert logmel_kernel.n_launches == before + 1
+                assert logmel_launches.n_calls == before + 1
                 out.append(m)
         runs.append(([g[k].clone() for g in state_groups(st)
                       for k in sorted(g)], out))
     program = stage2.graphed_step(cfg, wav.shape, wav.device).program
-    assert program.graph is not None and program.launches_per_replay == 1
+    assert program.graph is not None
+    assert program.counts_per_replay["logmel_kernel"] == 1
     (eager, m_eager), (again, m_again), (graphed, m_graphed) = runs
     for e, a, g in zip(eager, again, graphed):
         tol = max(STATE_RTOL * float(e.abs().max()),
@@ -328,17 +329,18 @@ def test_stage2_flagship_dp_step_at_one_nccl_rank_graphed_matches_eager(
         with (contextlib.nullcontext() if graphs
               else _graphs.disable_graphs()):
             for step in (0, t.g_warmup_steps):  # both sides of the gate
-                before = logmel_kernel.n_launches
+                before = logmel_launches.n_calls
                 st, m = stage2.train_step(
                     cfg, dataclasses.replace(st, step=step), wav,
                     group=nccl_group, dp=dp)
-                assert logmel_kernel.n_launches == before + 1
+                assert logmel_launches.n_calls == before + 1
                 out.append(m)
         runs.append(([g[k].clone() for g in state_groups(st)
                       for k in sorted(g)], out))
     program = stage2.graphed_step(cfg, wav.shape, wav.device,
                                   group=nccl_group, dp=dp).program
-    assert program.graph is not None and program.launches_per_replay == 1
+    assert program.graph is not None
+    assert program.counts_per_replay["logmel_kernel"] == 1
     (eager, m_eager), (again, m_again), (graphed, m_graphed) = runs
     for e, a, g in zip(eager, again, graphed):
         tol = max(STATE_RTOL * float(e.abs().max()),

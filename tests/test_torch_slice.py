@@ -185,15 +185,15 @@ def test_zoo_composer_full_width_matches_jax():
 def test_copy_synthesizer_full_width_on_cpu():
     """The entry point on the CPU with the card's vocoder: shape, finite
     output, and no kernel launch (the plain version runs on the CPU)."""
-    from music_synthesis_tpu_torch.ops.logmel import logmel_kernel
+    from music_synthesis_tpu_torch.ops.logmel import logmel_launches
 
-    before = logmel_kernel.n_launches
+    before = logmel_launches.n_calls
     cs = CopySynthesizer("vocoder_istft", device="cpu")
     wav = 0.3 * np.sin(np.arange(2 * 3000) * 0.03).reshape(2, 3000)
     y, dist = cs(wav)
     assert y.shape == (2, 3000 // 256 * 256) and torch.isfinite(y).all()
     assert np.isfinite(dist) and dist > 0
-    assert logmel_kernel.n_launches == before
+    assert logmel_launches.n_calls == before
 
 
 @pytest.fixture(scope="module")

@@ -7,9 +7,10 @@ concatenated D batch, reused real features) and the MSD's grouped
 convolutions lowered to dense block-diagonal ones (``dense_groups_max_g
 16``), as the flagship recipe trains:
 
-- the captured body (``_update_in_place``: per-step scalars, the warmup
-  gate among them, as 0-d tensors, draws made before it) makes no host
-  read (``test_torch_graphs.NoHostReads``);
+- the captured body (the in-place step's update, ``train.state.
+  InPlaceStep._body``: per-step scalars, the warmup gate among them, as
+  0-d tensors, draws made before it) makes no host read
+  (``test_torch_graphs.NoHostReads``);
 - ``GraphedStep`` equals the functional ``train_step`` bit for bit in
   every metric and state tensor over 7 steps from step 0 (four inside the
   gate, three past it), with the same step, Adam counts and generator
@@ -107,8 +108,8 @@ def test_captured_body_makes_no_host_read():
         _, noise = stage2._draws(cfg, st, wav.device, wav.shape, None)
         scalars = torch.tensor(stage2._scalars(cfg, st))
         with NoHostReads():
-            metrics = stage2._update_in_place(cfg, "fast", st, wav,
-                                              scalars, *noise)
+            metrics = stage2.GraphedStep(cfg, "cpu")._body(st, wav, scalars,
+                                                           *noise)
         assert set(metrics) >= {"d_loss", "g_loss", "d_r1", "d_update_norm"}
 
 

@@ -23,6 +23,7 @@ from music_synthesis_tpu_torch.convert import (
     train_state_from_jax,
 )
 from music_synthesis_tpu_torch.train import stage2
+from music_synthesis_tpu_torch.train.state import noise_scale
 
 torch.set_num_threads(1)
 
@@ -121,7 +122,7 @@ def test_fresh_state_matches_jax_init_in_names_and_noise_schedule(base):
         want_s = np.float32(t.d_input_noise) * max(
             np.float32(0.0), np.float32(1.0) - np.float32(step)
             / np.float32(t.d_noise_decay_steps))
-        assert stage2.noise_scale(cfg, step) == float(want_s)
+        assert noise_scale(cfg, step) == float(want_s)
 
 
 def test_entry_points_run_on_cuda_unless_told(base):

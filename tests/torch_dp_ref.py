@@ -30,6 +30,7 @@ from music_synthesis_tpu_torch.parallel.shard_map_dp import (
 )
 from music_synthesis_tpu_torch.train import stage1, stage2
 from music_synthesis_tpu_torch.train.checkpoint import restore_checkpoint
+from music_synthesis_tpu_torch.train.state import _floats
 
 STEPS = {("jit", 1): make_dp_stage1_step, ("jit", 2): make_dp_stage2_step,
          ("shard_map", 1): make_shardmap_stage1_step,
@@ -55,9 +56,9 @@ def in_place(stage: int, cfg, dp: str, device: str = "cpu"):
         step = stage1.GraphedStep(cfg, device, group, dp)
 
     def run(state, batch, z=None, noise=None):
-        args = (noise,) if stage == 2 else (z, noise)
-        state, metrics = step(state, batch, *args)
-        return state, stage2._floats(metrics)
+        kw = {"noise": noise} if stage == 2 else {"z": z, "noise": noise}
+        state, metrics = step(state, batch, **kw)
+        return state, _floats(metrics)
 
     return run
 
@@ -147,10 +148,7 @@ KINDS = {"train": train, "many": many, "many_in_place": many_in_place,
          "loss_grads": loss_grads}
 
 
-def run_jobs(jobs: list[dict], row_invariant: bool = False) -> list:
-    """Each job's result, in order (the function a group of ranks runs).
-    ``row_invariant``: with oneDNN off, as ``test_torch_parallel`` runs
-    its single-process steps (that module's docstring says why)."""
-    with torch.backends.mkldnn.flags(enabled=not row_invariant):
-        return [KINDS[job["kind"]](**job["args"]) for job in jobs]
+def run_jobs(jobs: list[dict]) -> list:
+    """Each job's result, in order (the function a group of ranks runs)."""
+    return [KINDS[job["kind"]](**job["args"]) for job in jobs]
 
