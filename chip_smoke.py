@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (H100).
 
-    python3 chip_smoke.py [--seed 0] [--budget 900]
+    python3 chip_smoke.py [--seed 0] [--budget 1200]
     python3 chip_smoke.py --cpu-gaps     # on any machine: the CPU's own
                                          # bf16-vs-fp32 gaps (see CPU_GAPS)
     python3 chip_smoke.py --kernel-times [--tree DIR]
                                          # the log-mel kernel of the
                                          # checkout DIR (default: this one):
                                          # errors and times, and the
-                                         # anti-aliased SnakeBeta kernel's
+                                         # anti-aliased SnakeBeta and the
+                                         # grouped convolution kernels'
                                          # times: one JSON line
 
 Drives ``music_synthesis_tpu_torch`` through the entry points a user calls,
@@ -222,7 +223,16 @@ at the flagship's full width with the committed zoo weights, in phases:
    version's (``aa_act_times``); and one replay of a graphed BigVGAN
    stage-2 step (batch 2, published widths), its launch counts set to 0
    just before: 109 activations and 327 kernel launches;
-11. the ``kernels`` JSON line (printed after phase 17).
+18. the grouped convolution kernels (``csrc/grouped_conv.cu``, main path
+   of the MSD's grouped layers over ``dense_groups_max_g``):
+   ``GroupedConv`` forward and backward at ``GROUPED_CONV_SHAPES`` in
+   bf16, y and the input's, kernel's and bias's gradients against float64
+   within the card test's bound (``GROUPED_CONV_FACTOR`` times cuDNN's own
+   error, ...); the kernels' device-only times beside their bounds and
+   cuDNN's (``grouped_conv_times``); and one replay of the flagship's
+   graphed stage-2 step (batch 2), its launch count set to 0 just before:
+   90 launches;
+11. the ``kernels`` JSON line (printed after phase 18).
 
 On the card the entry points replay CUDA graphs (``_graphs.py``): phases
 3-4 (copy-synthesis, serving), 5, 6 (the single-process stage-2 step and
@@ -241,7 +251,7 @@ count no kernel launch; each replay counts the launches its capture
 recorded.
 
 The launch counts are set to 0 just before phases 3-4 and read just after,
-and again around each of phases 6, 7, 8, 9, 10, 14, 15, 16 and 17 (and around phase
+and again around each of phases 6, 7, 8, 9, 10, 14, 15, 16, 17 and 18 (and around phase
 10's ``eval_checkpoint --run``) and around phase 13's ``extract_features``
 and ``eval_stage1``; phase 12's ranks read theirs around their steps.
 Any failed check raises, so the exit code is non-zero and no result line is
@@ -688,8 +698,10 @@ def kernel_times(seed: int) -> dict:
     """The log-mel kernel of the importable package (``--tree``): phase 2's
     errors at every case (the same audio for the same seed), and at
     ``KERNEL_SHAPES`` (vocoder variant, power 2, 128 mels) both paths'
-    times under both timers, the launcher's choices. For holding two trees
-    against each other in one session on one card."""
+    times under both timers, the launcher's choices; the anti-aliased
+    SnakeBeta kernel's (``aa_act_times``) and the grouped convolution
+    kernels' times (``grouped_conv_times``). For holding two trees against
+    each other in one session on one card."""
     from music_synthesis_tpu_torch import _build
     from music_synthesis_tpu_torch.ops import logmel as L
 
@@ -713,7 +725,85 @@ def kernel_times(seed: int) -> dict:
     return {"package": str(Path(L.__file__).resolve().parents[1]),
             "build_s": built.seconds, "ptxas": list(built.ptxas),
             "worst": worst, "times": times, "aa_act": aa_act_times(seed),
+            "grouped_conv": grouped_conv_times(seed),
             "card": card_name_and_power()}
+
+
+# The MSD's grouped layers that the benchmark's cells run on the grouped
+# convolution kernels, as (batch, groups, ci, co, kernel, stride, padded
+# length): D's both-batch pass at scale 0 of each layer (groups 64 in the
+# flagship, 256 in every cell) and BigVGAN's [64, ...] pass.
+GROUPED_CONV_SHAPES = ((32, 64, 4, 16, 41, 4, 552), (32, 64, 4, 16, 41, 4, 168),
+                       (32, 256, 4, 4, 41, 4, 168), (32, 256, 4, 4, 41, 4, 72),
+                       (16, 256, 4, 4, 41, 4, 168), (64, 256, 4, 4, 41, 4, 168))
+
+
+def grouped_conv_times(seed: int) -> dict | None:
+    """The grouped convolution kernels (``csrc/grouped_conv.cu``) of the
+    importable package at ``GROUPED_CONV_SHAPES`` in bf16, the kernel as
+    ``WNConv`` hands it: device-only times (``graph_time_ms``) of the
+    forward (with bias), the input gradient and the weight and bias
+    gradients (both launches), each beside its least time (the larger of
+    its bytes, each operand read once and the result written once, at 3.35
+    TB/s and its FLOPs in fp32 FFMA at 67 TFLOP/s) and beside cuDNN's time
+    for the same call (``library_ms``: ``F.conv1d`` and aten's
+    ``convolution_backward``, a yardstick the port never calls). None when
+    the package has no such kernels."""
+    import torch.nn.functional as F
+
+    from music_synthesis_tpu_torch import _build
+
+    try:
+        from music_synthesis_tpu_torch.ops import grouped_conv as gc
+    except ImportError:
+        return None
+    built = _build.build("grouped_conv")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    aten = torch.ops.aten
+    rows = {}
+    for batch, groups, ci, co, k, s, length in GROUPED_CONV_SHAPES:
+        conv = gc.Conv(batch, groups, ci, co, k, s, length)
+        bf16 = torch.bfloat16
+        x = torch.randn(batch, groups * ci, length, generator=gen,
+                        device="cuda").to(bf16)
+        w = (0.05 * torch.randn(k, ci, groups * co, generator=gen,
+                                device="cuda")).to(bf16).permute(2, 1, 0)
+        b = torch.randn(groups * co, generator=gen, device="cuda").to(bf16)
+        gy = torch.randn(batch, groups * co, conv.out, generator=gen,
+                         device="cuda").to(bf16)
+        args = ([s], [1], groups)
+        calls = {
+            "fwd": lambda: gc.forward(x, w, b, *args),
+            "dgrad": lambda: gc.input_grad(gy, w, length, *args),
+            "wgrad": lambda: gc.weight_grad(gy, x, w.shape, *args, True,
+                                            True),
+            "library_fwd": lambda: F.conv1d(x, w, b, stride=s, groups=groups),
+            "library_dgrad": lambda: aten.convolution_backward(
+                gy, x, w, None, [s], [0], [1], False, [0], groups,
+                [True, False, False]),
+            "library_wgrad": lambda: aten.convolution_backward(
+                gy, x, w, [groups * co], [s], [0], [1], False, [0], groups,
+                [False, True, True])}
+        row = {f"{key}_ms": graph_time_ms(fn) for key, fn in calls.items()}
+        sizes = {"x": x.numel(), "y": gy.numel(), "w": w.numel()}
+        moved = {"fwd": sizes["x"] + sizes["w"] + sizes["y"],
+                 "dgrad": sizes["y"] + sizes["w"] + sizes["x"],
+                 "wgrad": sizes["x"] + sizes["y"] + sizes["w"]}
+        for key, elems in moved.items():
+            bound = max(2 * elems / PEAK_BYTES_PER_S,
+                        conv.flops / PEAK_FP32_FLOPS) * 1e3
+            row[f"{key}_bound_ms"] = bound
+            row[f"{key}_share"] = bound / row[f"{key}_ms"]
+        rows[str([batch, groups * ci, length, groups])] = row
+        log(f"[grouped_conv] x [{batch}, {groups * ci}, {length}] groups "
+            f"{groups}, bf16, device only: " + ", ".join(
+                f"{key} {row[f'{key}_ms']:.4f} ms (bound "
+                f"{row[f'{key}_bound_ms']:.4f}, share "
+                f"{row[f'{key}_share']:.3f}; cuDNN "
+                f"{row[f'library_{key}_ms']:.4f})"
+                for key in ("fwd", "dgrad", "wgrad")))
+    return {"build_s": built.seconds, "ptxas": list(built.ptxas),
+            "shapes": rows}
 
 
 # BigVGAN's six anti-aliased SnakeBeta shapes at the benchmark's batch.
@@ -925,6 +1015,175 @@ def aa_act_kernel_entry(aa: dict) -> dict:
             for k, v in aa["times"]["shapes"].items()},
         "build_s": aa["times"]["build_s"],
         "ptxas": aa["times"]["ptxas"],
+    }
+
+
+# tests/test_torch_grouped_conv_gpu.py's bound: each output's max abs error
+# against float64 may be this many times cuDNN's own (TF32 off, the same
+# shape and dtype), plus GROUPED_CONV_FLOOR of the largest magnitude.
+GROUPED_CONV_FACTOR, GROUPED_CONV_FLOOR = 4.0, 1e-6
+
+
+def grouped_conv_errors(seed: int) -> dict:
+    """``GroupedConv`` (the function the MSD's grouped layers call, so the
+    kernels launched as the model launches them) forward and backward at
+    ``GROUPED_CONV_SHAPES`` in bf16, the kernel as ``WNConv`` hands it: y
+    and the input's, kernel's and bias's gradients against native
+    ``F.conv1d`` and aten's ``convolution_backward`` in float64 on the CPU,
+    each within ``GROUPED_CONV_FACTOR`` times cuDNN's own error plus
+    ``GROUPED_CONV_FLOOR`` of the largest magnitude; four launches a shape.
+    Per shape and output the max abs error and its bound."""
+    import torch.nn.functional as F
+
+    from music_synthesis_tpu_torch.ops import conv as conv_ops
+    from music_synthesis_tpu_torch.ops import grouped_conv as gc
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    rows, worst = {}, 0.0
+    for batch, groups, ci, co, k, s, length in GROUPED_CONV_SHAPES:
+        out = (length - k) // s + 1
+        x, gy = (torch.randn(batch, groups * c, n, generator=gen,
+                             device="cuda").to(torch.bfloat16)
+                 for c, n in ((ci, length), (co, out)))
+        w = (torch.randn(k, ci, groups * co, generator=gen, device="cuda")
+             / (ci * k) ** 0.5).to(torch.bfloat16).permute(2, 1, 0)
+        b = torch.randn(groups * co, generator=gen,
+                        device="cuda").to(torch.bfloat16)
+
+        def library(*tensors):
+            xs, ws, bs, gys = tensors
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                y = F.conv1d(xs, ws, bs, stride=s, groups=groups)
+                grads = torch.ops.aten.convolution_backward(
+                    gys, xs, ws, [groups * co], [s], [0], [1], False, [0],
+                    groups, [True, True, True])
+            return [y, *grads]
+
+        want = library(*(t.double().cpu() for t in (x, w, b, gy)))
+        cudnn = library(x, w, b, gy)
+        before = gc.grouped_conv_kernel.n_calls
+        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+        y = conv_ops.GroupedConv.apply(*leaves, (s,), (1,), groups)
+        got = [y.detach(), *torch.autograd.grad(y, leaves, gy)]
+        torch.cuda.synchronize()
+        check(gc.grouped_conv_kernel.n_calls - before == 4,
+              f"GroupedConv at x [{batch}, {groups * ci}, {length}] did not "
+              f"launch the kernels four times (forward, input gradient, "
+              f"weight partials, finish)")
+        row = {}
+        for name, g, c, wv in zip(("y", "gx", "gw", "gb"), got, cudnn, want):
+            err = float((g.double().cpu() - wv).abs().max())
+            tol = (GROUPED_CONV_FACTOR * float((c.double().cpu() - wv).abs()
+                                               .max())
+                   + GROUPED_CONV_FLOOR * float(wv.abs().max()))
+            check(g.shape == wv.shape and bool(torch.isfinite(g).all())
+                  and err <= tol,
+                  f"the grouped convolution's {name} at x [{batch}, "
+                  f"{groups * ci}, {length}] groups {groups} is off float64 "
+                  f"by {err:.3g} (bound {tol:.3g})")
+            row[name] = {"max_abs_err": err, "tol": tol}
+            worst = max(worst, err)
+        rows[str([batch, groups * ci, length, groups])] = row
+        log(f"[grouped_conv] x [{batch}, {groups * ci}, {length}] groups "
+            f"{groups} bf16 against float64: " + ", ".join(
+                f"{n} {v['max_abs_err']:.3g} (bound {v['tol']:.3g})"
+                for n, v in row.items()))
+    return {"max_abs_err": worst, "shapes": rows}
+
+
+# Launches of the grouped convolution kernels per replay of the flagship's
+# graphed stage-2 step (tests/test_torch_grouped_conv_gpu.py's
+# STEP_LAUNCHES): 15 for each of the 6 grouped layers and scales.
+GROUPED_CONV_FLAGSHIP_LAUNCHES = 90
+
+
+def grouped_conv_step_launches(rng: np.random.Generator) -> dict:
+    """One replay of the graphed stage-2 step of the benchmark's flagship
+    configuration (``benchmark/configs/flagship.json``) at batch 2: the
+    grouped convolution kernels' launches, the count set to 0 just before
+    the replay."""
+    from music_synthesis_tpu_torch import config
+    from music_synthesis_tpu_torch.ops import grouped_conv as gc
+    from music_synthesis_tpu_torch.train import stage2
+    from music_synthesis_tpu_torch.train.state import drop_graphed_steps
+
+    raw = json.loads((Path(__file__).resolve().parent / "benchmark"
+                      / "configs" / "flagship.json").read_text())
+    base = config.config_from_dict(raw["train"])
+    cfg = dataclasses.replace(base, train=dataclasses.replace(
+        base.train, batch_size=2))
+    state = stage2.make_train_state(cfg, seed=DEFAULT_PATH_SEED,
+                                    device="cuda")
+    wav = torch.from_numpy(test_audio(rng, 2, cfg.train.segment_length,
+                                      cfg.frontend.sample_rate)).cuda()
+    state, _ = stage2.train_step(cfg, state, wav)  # builds the graph
+    gc.grouped_conv_kernel.n_calls = 0
+    state, metrics = stage2.train_step(cfg, state, wav)
+    out = {"launches": gc.grouped_conv_kernel.n_calls,
+           "finite": all(np.isfinite(v) for v in metrics.values())}
+    del state
+    drop_graphed_steps()
+    torch.cuda.empty_cache()
+    log(f"[grouped_conv] one graphed flagship step (batch 2): "
+        f"{out['launches']} kernel launches")
+    check(out["launches"] == GROUPED_CONV_FLAGSHIP_LAUNCHES and out["finite"],
+          f"a graphed flagship step launched the grouped convolution "
+          f"kernels {out['launches']} times, not "
+          f"{GROUPED_CONV_FLAGSHIP_LAUNCHES}")
+    return out
+
+
+def phase_grouped_conv(rng: np.random.Generator, seed: int) -> dict:
+    """Phase 18: the grouped convolution kernels against float64, their
+    times beside their bounds and cuDNN's, and their launches in a graphed
+    flagship step."""
+    errors = grouped_conv_errors(seed)
+    times = grouped_conv_times(seed)
+    step = grouped_conv_step_launches(rng)
+    return {"errors": errors, "times": times, "step": step}
+
+
+def grouped_conv_kernel_entry(gcv: dict) -> dict:
+    """The ``kernels`` line's entry of ``csrc/grouped_conv.cu`` from phase
+    18: times at the group-256 layer's scale 0 in the flagship's D pass,
+    x [32, 1024, 168] (forward, input gradient, weight and bias gradients,
+    device only), beside cuDNN's for the same calls; errors over every
+    shape."""
+    shape = str([32, 1024, 168, 256])
+    t = gcv["times"]["shapes"][shape]
+    keys = ("fwd", "dgrad", "wgrad")
+    library_ms = sum(t[f"library_{k}_ms"] for k in keys)
+    return {
+        "name": "grouped_conv",
+        "route": "cuda",
+        "source": "music_synthesis_tpu_torch/csrc/grouped_conv.cu",
+        "replaces": None,
+        "launches": gcv["step"]["launches"],
+        "max_abs_err": gcv["errors"]["max_abs_err"],
+        "ms": sum(t[f"{k}_ms"] for k in keys),
+        "plain_ms": library_ms,
+        "bound_ms": sum(t[f"{k}_bound_ms"] for k in keys),
+        "bound_by": "fp32 FFMA at 67 TFLOP/s or bytes at 3.35 TB/s, the "
+                    "larger",
+        "library_ms": library_ms,
+        "ok": True,
+        "path": "one launch forward, one input gradient, two weight and "
+                "bias gradients (the plain version, the aten calls, is "
+                "cuDNN's on the card)",
+        "shape": [32, 1024, 168],
+        "groups": 256,
+        "dtype": "bfloat16",
+        "launches_by_path": {"flagship_train_step_replay":
+                             gcv["step"]["launches"]},
+        "by_shape": {k: {**{n: v[n] for n in (
+            "fwd_ms", "dgrad_ms", "wgrad_ms", "fwd_bound_ms",
+            "dgrad_bound_ms", "wgrad_bound_ms", "library_fwd_ms",
+            "library_dgrad_ms", "library_wgrad_ms")},
+            "max_abs_err": max(e["max_abs_err"] for e in
+                               gcv["errors"]["shapes"][k].values())}
+            for k, v in gcv["times"]["shapes"].items()},
+        "build_s": gcv["times"]["build_s"],
+        "ptxas": gcv["times"]["ptxas"],
     }
 
 
@@ -3671,14 +3930,15 @@ def cpu_gaps() -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--budget", type=float, default=900.0,
+    ap.add_argument("--budget", type=float, default=1200.0,
                     help="watchdog: dump stacks and exit after this many s")
     ap.add_argument("--cpu-gaps", action="store_true",
                     help="print the CPU's bf16-vs-fp32 gaps (CPU_GAPS) and exit")
     ap.add_argument("--kernel-times", action="store_true",
                     help="print the log-mel kernel's errors and times and "
-                         "the anti-aliased SnakeBeta kernel's times "
-                         "(kernel_times) as one JSON line and exit")
+                         "the anti-aliased SnakeBeta and grouped "
+                         "convolution kernels' times (kernel_times) as one "
+                         "JSON line and exit")
     ap.add_argument("--tree", type=Path, default=None,
                     help="with --kernel-times: the checkout whose package is "
                          "built and timed (default: this one)")
@@ -3831,6 +4091,9 @@ def main() -> int:
     banner("phase 17: the anti-aliased SnakeBeta kernel (main path)")
     aa = phase_aa_act(rng, args.seed)
 
+    banner("phase 18: the grouped convolution kernels (main path)")
+    grouped = phase_grouped_conv(rng, args.seed)
+
     banner("phase 11: kernels")
     main_row = next(r for r in kv["rows"] if r["shape"] == [16, 8192]
                     and r["variant"] == "for_vocoder" and r["power"] == 2.0
@@ -3891,7 +4154,7 @@ def main() -> int:
                                  by_scenario["bench_frontend_ab"],
                              "cuda_graphs": launches["cuda_graphs"],
                              "notebook": launches["notebook"]},
-    }, aa_act_kernel_entry(aa)]}
+    }, aa_act_kernel_entry(aa), grouped_conv_kernel_entry(grouped)]}
     summary = {"copy_synthesis": copy, "serving": serving,
                "copy_card_vs_cpu_err": copy_err,
                "serve_card_vs_cpu_err": serve_err,
@@ -3908,6 +4171,7 @@ def main() -> int:
                "cuda_graphs": graphs,
                "notebook": notebook,
                "aa_act": aa,
+               "grouped_conv": grouped,
                "kernel_rows": kv["rows"],
                "total_s": time.perf_counter() - t_start}
     log("[summary] " + json.dumps(summary))

@@ -32,6 +32,17 @@ convolution for the output-gradient term and one grouped weight-gradient
 call for the weight term; ``grouped_wgrad2.n_calls`` counts the latter.
 Without grad mode, the backward is the single ``convolution_backward``
 that native autograd dispatches, with the same mask.
+
+On the card ``GroupedConv`` runs ``csrc/grouped_conv.cu``
+(``ops/grouped_conv.py``) for each of these calls: the forward, the input
+gradient (first order, and ``_GroupedConvInputGrad``'s forward), the
+weight and bias gradients, and the double backward's two terms. A CUDA
+call launches the kernels or raises (a 2-D one, which no model of the
+port builds, raises); only a CPU tensor keeps the aten calls. On the card
+each call is a region of the tracer,
+``grouped_conv.fwd`` (the forward) or ``grouped_conv.bwd`` (every
+gradient; from autograd's thread it joins the capture the forward ran
+in), and ``grouped_conv_kernel.n_calls`` counts the launches.
 """
 
 from __future__ import annotations
@@ -42,7 +53,13 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from music_synthesis_tpu_torch.utils.profiling import counter
+from music_synthesis_tpu_torch.ops import grouped_conv
+from music_synthesis_tpu_torch.utils.profiling import (
+    counter,
+    current_capture,
+    join_capture,
+    region,
+)
 
 __all__ = ["GroupedConv", "WNConv", "WNConvTranspose1d", "avg_pool1d",
            "block_diagonal", "conv_transpose_padding", "grouped_wgrad2"]
@@ -98,6 +115,12 @@ def _conv_backward(gy, x, w, bias_sizes, args, mask):
     return [g if m else None for g, m in zip(grads, mask)]
 
 
+def _on_card(x: torch.Tensor) -> bool:
+    """A call for ``csrc/grouped_conv.cu``: a CUDA tensor (the launchers
+    raise on what the kernels do not take, a 2-D call included)."""
+    return x.is_cuda
+
+
 class _GroupedConvInputGrad(torch.autograd.Function):
     """``grad_x`` of a grouped convolution, from ``grad_y`` and the kernel
     (``x`` only for its shape), closed under one more derivative: the
@@ -109,6 +132,9 @@ class _GroupedConvInputGrad(torch.autograd.Function):
     def forward(ctx, gy, x, w, bias_sizes, args):
         ctx.save_for_backward(gy, w)
         ctx.args = args
+        ctx.capture = current_capture()
+        if _on_card(x):  # inside GroupedConv.backward's region
+            return grouped_conv.input_grad(gy, w, x.shape[-1], *args)
         return _conv_backward(gy, x, w, bias_sizes, args,
                               [True, False, False])[0]
 
@@ -117,11 +143,25 @@ class _GroupedConvInputGrad(torch.autograd.Function):
         gy, w = ctx.saved_tensors
         need_gy, _, need_w = _needed(ctx, 3)
         ggy = gw = None
-        if need_gy:
-            ggy = _conv(ggx, w, None, ctx.args)
+        if _on_card(gy):
+            if torch.is_grad_enabled():
+                raise NotImplementedError(
+                    "a third derivative of a grouped convolution on the "
+                    "card")
+            with join_capture(ctx.capture), region("grouped_conv.bwd"):
+                ggx = ggx.contiguous()
+                if need_gy:
+                    ggy = grouped_conv.forward(ggx, w, None, *ctx.args)
+                if need_w:
+                    gw = grouped_conv.weight_grad(gy, ggx, w.shape,
+                                                  *ctx.args, True, False)[0]
+        else:
+            if need_gy:
+                ggy = _conv(ggx, w, None, ctx.args)
+            if need_w:
+                gw = _conv_backward(gy, ggx, w, None, ctx.args,
+                                    [False, True, False])[1]
         if need_w:
-            gw = _conv_backward(gy, ggx, w, None, ctx.args,
-                                [False, True, False])[1]
             grouped_wgrad2.n_calls += 1
         return ggy, None, gw, None, None
 
@@ -132,13 +172,18 @@ class GroupedConv(torch.autograd.Function):
     without grad mode is the one ``convolution_backward`` native autograd
     dispatches, with the same mask; under grad mode (``create_graph``)
     ``grad_x`` is ``_GroupedConvInputGrad``'s and the kernel's and bias's
-    gradients, where asked for, one native call's."""
+    gradients, where asked for, one native call's. A CUDA call runs
+    ``csrc/grouped_conv.cu`` instead (the module's docstring)."""
 
     @staticmethod
     def forward(ctx, x, w, b, stride, dilation, groups):
         ctx.save_for_backward(x, w)
         ctx.bias_sizes = None if b is None else [b.shape[0]]
         ctx.args = (list(stride), list(dilation), groups)
+        if _on_card(x):
+            ctx.capture = current_capture()
+            with region("grouped_conv.fwd"):
+                return grouped_conv.forward(x, w, b, *ctx.args)
         return _conv(x, w, b, ctx.args)
 
     @staticmethod
@@ -148,12 +193,53 @@ class GroupedConv(torch.autograd.Function):
         closed = torch.is_grad_enabled() and mask[0]
         if closed:
             mask[0] = False
+        if _on_card(x):
+            return _backward_on_card(ctx, gy, x, w, mask, closed)
         gx, gw, gb = (_conv_backward(gy, x, w, ctx.bias_sizes, ctx.args, mask)
                       if any(mask) else (None, None, None))
         if closed:
             gx = _GroupedConvInputGrad.apply(gy, x, w, ctx.bias_sizes,
                                              ctx.args)
         return gx, gw, gb, None, None, None
+
+
+class _WeightGradOnCard(torch.autograd.Function):
+    """The kernel's weight and bias gradients taken under grad mode (R1's
+    ``create_graph`` pass asks for them where the bias or kernel is a leaf,
+    whose node the engine cannot be asked about): the values, and a
+    derivative that raises, as the kernels carry none further."""
+
+    @staticmethod
+    def forward(ctx, gy, x, w, args, need_w, need_b):
+        return grouped_conv.weight_grad(gy, x, w.shape, *args, need_w,
+                                        need_b)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError(
+            "a derivative of a grouped convolution's weight or bias "
+            "gradient on the card")
+
+
+def _backward_on_card(ctx, gy, x, w, mask, closed):
+    """``GroupedConv.backward`` through ``csrc/grouped_conv.cu``; under grad
+    mode ``grad_x`` is ``_GroupedConvInputGrad``'s and the kernel's and
+    bias's gradients ``_WeightGradOnCard``'s."""
+    gx = gw = gb = None
+    with join_capture(ctx.capture), region("grouped_conv.bwd"):
+        gy = gy.contiguous()  # autograd may hand it expanded
+        if mask[0]:
+            gx = grouped_conv.input_grad(gy, w, x.shape[-1], *ctx.args)
+        if (mask[1] or mask[2]) and torch.is_grad_enabled():
+            gw, gb = _WeightGradOnCard.apply(gy, x, w, ctx.args, mask[1],
+                                             mask[2])
+        elif mask[1] or mask[2]:
+            gw, gb = grouped_conv.weight_grad(gy, x, w.shape, *ctx.args,
+                                              mask[1], mask[2])
+        if closed:
+            gx = _GroupedConvInputGrad.apply(gy, x, w, ctx.bias_sizes,
+                                             ctx.args)
+    return gx, gw, gb, None, None, None
 
 
 def _init_std(scheme: str, init_scale: float, fan_in: int,

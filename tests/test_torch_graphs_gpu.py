@@ -502,7 +502,9 @@ def test_steady_graphed_stage2_loop_captures_once(cuda, tracing):
     assert all(r["replay_ms"] > 0 and r["launch_ms"] > 0 for r in records)
     assert all(r["period_ms"] > 0 for r in records[:-1])
     assert records[-1]["period_ms"] is None
-    assert set(records[0]["region_ms"]) == set(profiling.step_regions(cfg, 2))
+    # TINY's grouped layers each open a region on the card's kernels.
+    assert set(records[0]["region_ms"]) == set(profiling.step_regions(
+        cfg, 2)) | {"grouped_conv.fwd", "grouped_conv.bwd"}
     assert len(tracing.snapshot()["spans"]["graph.launch"]) == 12
 
 
@@ -670,8 +672,11 @@ def test_graphed_step_and_pipeline_with_marks_equal_them_without(
                                     benchmark=False):
         off, m_off, marks_off = _stage2_run(cfg, cuda, False)
         on, m_on, marks_on = _stage2_run(cfg, cuda, True)
+    # TINY's MSD runs its grouped layers on the card's kernels, each call a
+    # region of its own.
     assert marks_off == [] and set(marks_on) == set(
-        profiling.step_regions(cfg, 2)), (marks_off, marks_on)
+        profiling.step_regions(cfg, 2)) | {
+            "grouped_conv.fwd", "grouped_conv.bwd"}, (marks_off, marks_on)
     assert m_on == m_off, (m_on, m_off)
     assert all(torch.equal(a, b) for a, b in zip(on, off))
     comp, voc = pair
