@@ -28,7 +28,8 @@ each of which owns one.
 - The tracer's ``COUNTERS`` (``ops/logmel.py``'s ``logmel_kernel``, the
   log-mel kernel's launches; ``ops/conv.py``'s ``grouped_wgrad2``, the
   second-order weight terms of grouped convolutions; ``ops/alias_free.py``'s
-  ``aa_act`` and ``aa_act_kernel``) count calls: a replay adds the calls
+  ``aa_act`` and ``aa_act_kernel``; ``ops/snake.py``'s ``snake`` and
+  ``models/codec.py``'s ``rvq_stage``) count calls: a replay adds the calls
   its capture issued. The warm-up's eager calls and the capture build the
   program (as the reference's first call compiles its program) and are
   taken back out of the counts; the tracer holds each label's counts per

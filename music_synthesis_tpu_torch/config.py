@@ -10,11 +10,16 @@ a TPU relayout of the same math (``MRDConfig.f_fold``,
 mode, ``mesh_*``) are kept so that those files load; the port computes
 the logical layer whatever they say.
 
-``VocoderConfig`` has two fields more than the JAX package's (``PORT_ONLY``:
-BigVGAN's generator, which the JAX package does not build). A section is
-written (``config_to_dict``, zoo cards) without those fields while they
-hold their defaults, so every config the JAX package can express is
-written as the JAX package writes it.
+The port has fields and sections the JAX package's config has not
+(``PORT_ONLY``, ``PORT_ONLY_SECTIONS``): BigVGAN's generator, and DAC's
+codec (the ``codec`` section, chosen by ``VocoderConfig.block="codec"``),
+its multi-period D (``mpd``), its banded MRD and its objective (LSGAN,
+summed feature matching, the multi-scale mel loss, the VQ losses, a clip
+per player, AdamW's decay), none of which the JAX package builds. A
+section is written (``config_to_dict``, zoo cards) without those fields
+while they hold their defaults, and the new sections not at all, so every
+config the JAX package can express is written as the JAX package writes
+it.
 """
 
 from __future__ import annotations
@@ -104,7 +109,10 @@ class VocoderConfig:
     # upsampling the mean of AMP residual stacks, one per kernel of
     # ``mrf_kernels``, each over ``res_dilations``, every activation the
     # anti-aliased SnakeBeta (ops/alias_free.py), convolutions zero-padded.
-    block: str = "residual"  # "residual" | "amp"
+    # Block "codec": G is DAC's codec of the ``codec`` section
+    # (models/codec.py), which takes the waveform; the other fields here
+    # are unused.
+    block: str = "residual"  # "residual" | "amp" | "codec"
     mrf_kernels: Tuple[int, ...] = ()
 
     @property
@@ -115,6 +123,47 @@ class VocoderConfig:
         if self.head == "istft":
             out *= self.istft_hop
         return out
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecConfig:
+    """DAC's generator (Kumar et al., arXiv:2306.06546; descript-audio-codec's
+    ``DAC``): a Snake encoder, a residual vector quantizer and a Snake
+    decoder. The defaults are the published 44.1 kHz model."""
+
+    encoder_dim: int = 64
+    encoder_rates: Tuple[int, ...] = (2, 4, 8, 8)
+    latent_dim: int = 1024
+    decoder_dim: int = 1536
+    decoder_rates: Tuple[int, ...] = (8, 8, 4, 2)
+    n_codebooks: int = 9
+    codebook_size: int = 1024
+    codebook_dim: int = 8
+    # Share of a batch's rows (the first ones) that keep a uniform draw of
+    # 1..n_codebooks stages in training; the others keep them all.
+    quantizer_dropout: float = 0.5
+    # The convolutions' (encoder, decoder); Snake and the VQ run in fp32.
+    compute_dtype: str = "float32"
+
+    @property
+    def hop_length(self) -> int:
+        out = 1
+        for r in self.encoder_rates:
+            out *= r
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class MPDConfig:
+    """Multi-period discriminator (HiFi-GAN's, as DAC builds it): the
+    waveform reflect-padded to a multiple of each period and folded to
+    ``[B, 1, L/p, p]``, then weight-normed (5, 1) convs through
+    ``channels`` (``models/discriminators.py`` fixes the rest); none while
+    ``periods`` is empty."""
+
+    periods: Tuple[int, ...] = ()
+    channels: Tuple[int, ...] = (32, 128, 512, 1024, 1024)
+    compute_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -154,6 +203,12 @@ class MRDConfig:
     f_fold: int = 0  # TPU relayout only; the logical conv here
     input_mode: str = "logmag"  # "logmag" | "complex"
     complex_compression: float = 0.3
+    # DAC's bands: each (lo, hi) share of the bins its own conv stack, the
+    # stacks' outputs joined along frequency before ``conv_out``.
+    bands: Tuple[Tuple[float, float], ...] = ()
+    # "valid": frames of the unpadded signal; "match_stride": audiotools'
+    # (DAC's) framing, L / hop frames.
+    stft_padding: str = "valid"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,7 +243,7 @@ class TrainConfig:
     # FM target from the D step's real taps (only when d_input_noise == 0).
     reuse_real_features: bool = False
     concat_disc_batch: bool = False  # TPU batching of D; same math here
-    gan_loss: str = "hinge"  # "hinge" | "nonsat"
+    gan_loss: str = "hinge"  # "hinge" | "nonsat" | "lsgan"
     # Instance noise on D's inputs, sigma(step) = d_input_noise *
     # max(0, 1 - step / d_noise_decay_steps) (constant when 0).
     d_input_noise: float = 0.0
@@ -211,6 +266,21 @@ class TrainConfig:
     use_pallas_frontend: bool = False
     mesh_shape: Tuple[int, ...] = (1,)
     mesh_axes: Tuple[str, ...] = ("data",)
+    # Feature matching over D's taps: their "mean" or, as DAC, their "sum".
+    feature_matching: str = "mean"
+    # DAC's 7-scale mel L1 (losses/mel_loss.py). Where it is weighted it
+    # is G's reported reconstruction term, and the multi-resolution STFT
+    # term is computed only at lambda_stft > 0; without it the STFT term
+    # is computed and reported at any weight.
+    lambda_mel: float = 0.0
+    lambda_commitment: float = 0.0  # the codec's VQ losses
+    lambda_codebook: float = 0.0
+    # Per-player global-norm clips in place of grad_clip_norm (0: that).
+    g_grad_clip_norm: float = 0.0
+    d_grad_clip_norm: float = 0.0
+    weight_decay: float = 0.0  # AdamW's decoupled decay, both players
+    # D's inputs centred and scaled to this peak (DAC), 0 = as they are.
+    d_input_peak: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -234,6 +304,8 @@ class PipelineConfig:
     stft_loss: STFTLossConfig = STFTLossConfig()
     train: TrainConfig = TrainConfig()
     infer: InferConfig = InferConfig()
+    codec: CodecConfig = CodecConfig()
+    mpd: MPDConfig = MPDConfig()
 
 
 #: Log-mel extraction of one 22.05 kHz clip.
@@ -272,6 +344,32 @@ BIGVGAN_22K_80BAND = PipelineConfig(
     train=TrainConfig(batch_size=32, adam_b1=0.8, adam_b2=0.99),
 )
 
+#: DAC's 44.1 kHz codec (arXiv:2306.06546; descript-audio-codec's
+#: ``conf/base.yml``): G 76.65M parameters, D the MPD of periods 2-11 and
+#: the banded complex MRD, LSGAN, mel L1 x15, feature matching x2 (summed),
+#: commitment x0.25, codebook x1, AdamW (0.8, 0.99) at 1e-4 decayed by
+#: 0.999996 a step, clips 1e3 (G) and 10 (D), 72 excerpts of 0.38 s.
+DAC_44K = PipelineConfig(
+    frontend=FrontendConfig(sample_rate=44_100),
+    vocoder=VocoderConfig(block="codec"),
+    codec=CodecConfig(compute_dtype="bfloat16"),
+    msd=MSDConfig(n_scales=0),
+    mpd=MPDConfig(periods=(2, 3, 5, 7, 11), compute_dtype="bfloat16"),
+    mrd=MRDConfig(
+        resolutions=((2048, 512, 2048), (1024, 256, 1024), (512, 128, 512)),
+        leaky_slope=0.1, compute_dtype="bfloat16", input_mode="complex",
+        complex_compression=1.0, stft_padding="match_stride",
+        bands=((0.0, 0.1), (0.1, 0.25), (0.25, 0.5), (0.5, 0.75),
+               (0.75, 1.0))),
+    train=TrainConfig(
+        batch_size=72, segment_length=16_758, adam_b1=0.8, adam_b2=0.99,
+        lr_decay_rate=0.999996, lr_decay_every=1, gan_loss="lsgan",
+        lambda_feature_matching=2.0, feature_matching="sum", lambda_stft=0.0,
+        lambda_mel=15.0, lambda_commitment=0.25, lambda_codebook=1.0,
+        g_grad_clip_norm=1e3, d_grad_clip_norm=10.0, weight_decay=0.01,
+        d_input_peak=0.8),
+)
+
 #: Data-parallel two-stage training over eight devices.
 DP_V5E8_TRAIN = PipelineConfig(
     train=TrainConfig(batch_size=64, mesh_shape=(8,), mesh_axes=("data",))
@@ -283,7 +381,16 @@ _SECTIONS = {f.name: type(f.default)
 
 
 #: Fields the port's sections have and the JAX package's do not.
-PORT_ONLY = {VocoderConfig: ("block", "mrf_kernels")}
+PORT_ONLY = {
+    VocoderConfig: ("block", "mrf_kernels"),
+    MRDConfig: ("bands", "stft_padding"),
+    TrainConfig: ("feature_matching", "lambda_mel", "lambda_commitment",
+                  "lambda_codebook", "g_grad_clip_norm", "d_grad_clip_norm",
+                  "weight_decay", "d_input_peak"),
+}
+#: Sections the port has and the JAX package has not: written only where
+#: they differ from their defaults.
+PORT_ONLY_SECTIONS = ("codec", "mpd")
 
 
 def _to_json(obj):
@@ -303,9 +410,12 @@ def section_to_dict(section) -> dict:
 
 def config_to_dict(cfg: PipelineConfig) -> dict:
     """PipelineConfig -> JSON-safe nested dict (``section_to_dict`` per
-    section)."""
+    section; a ``PORT_ONLY_SECTIONS`` section only where it is not at its
+    default)."""
     return {f.name: section_to_dict(getattr(cfg, f.name))
-            for f in dataclasses.fields(cfg)}
+            for f in dataclasses.fields(cfg)
+            if f.name not in PORT_ONLY_SECTIONS
+            or getattr(cfg, f.name) != f.default}
 
 
 def section_from_dict(cls, d: dict):
@@ -383,3 +493,18 @@ TINY_BIGVGAN = dataclasses.replace(
         res_dilations=(1, 3), mrf_kernels=(3, 5)),
 )
 
+
+#: DAC_44K's structure at a size the CPU tests run in seconds.
+TINY_DAC = dataclasses.replace(
+    DAC_44K,
+    codec=CodecConfig(encoder_dim=8, encoder_rates=(2, 4), latent_dim=32,
+                      decoder_dim=32, decoder_rates=(4, 2), n_codebooks=3,
+                      codebook_size=16, codebook_dim=4),
+    mpd=dataclasses.replace(DAC_44K.mpd, periods=(2, 3),
+                            channels=(4, 8, 8, 8, 8), compute_dtype="float32"),
+    mrd=dataclasses.replace(DAC_44K.mrd,
+                            resolutions=((128, 32, 128), (64, 16, 64)),
+                            channels=4, compute_dtype="float32"),
+    train=dataclasses.replace(DAC_44K.train, batch_size=2,
+                              segment_length=2051),
+)

@@ -24,7 +24,7 @@ __all__ = ["flatten_params", "to_state_dict", "from_state_dict",
            "train_state_from_jax"]
 
 
-_LEAVES = ("bias", "v", "g", "b", "alpha", "beta")
+_LEAVES = ("bias", "v", "g", "b", "alpha", "beta", "codebook")
 
 
 def flatten_params(tree: Mapping[str, Any], prefix: str = "") -> dict[str, np.ndarray]:

@@ -319,7 +319,8 @@ class WNConv(_WNBase):
     ``kernel_size``, ``stride`` and ``dilation`` are an int (1-D) or one
     int per spatial axis. padding: 'same' (torch-style symmetric zeros,
     total ``d*(k-1)`` per axis with the extra sample at the end), 'reflect'
-    (the same amounts, reflected) or 'valid'. ``dense_groups``: with
+    (the same amounts, reflected), 'valid', or an int: that many zeros at
+    each end of each axis (``nn.Conv1d``'s ``padding``). ``dense_groups``: with
     ``groups > 1``, one dense convolution over ``block_diagonal`` of the
     kernel in place of ``groups`` grouped ones.
     """
@@ -328,7 +329,7 @@ class WNConv(_WNBase):
                  kernel_size: int | tuple[int, ...], *,
                  stride: int | tuple[int, ...] = 1,
                  dilation: int | tuple[int, ...] = 1, groups: int = 1,
-                 dense_groups: bool = False, padding: str = "same",
+                 dense_groups: bool = False, padding: str | int = "same",
                  use_weight_norm: bool = True, use_bias: bool = True,
                  init_scale: float = 0.02,
                  init_scheme: str = "dcgan", init_gain: float = 1.0,
@@ -346,7 +347,8 @@ class WNConv(_WNBase):
         if in_channels % groups:
             raise ValueError(f"in_channels {in_channels} not divisible by "
                              f"groups {groups}")
-        if padding not in ("same", "reflect", "valid"):
+        if not isinstance(padding, int) and padding not in (
+                "same", "reflect", "valid"):
             raise ValueError(f"unsupported padding {padding!r}")
         super().__init__(
             (*kernel, in_channels // groups, features),
@@ -361,6 +363,9 @@ class WNConv(_WNBase):
         # F.pad order: the last axis first, (lo, hi) for each.
         pads = []
         for k, d in zip(reversed(kernel), reversed(self.dilation)):
+            if isinstance(padding, int):
+                pads += [padding, padding]
+                continue
             total = 0 if padding == "valid" else d * (k - 1)
             pads += [total // 2, total - total // 2]
         self.pads = tuple(pads)

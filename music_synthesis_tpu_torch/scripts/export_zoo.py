@@ -74,10 +74,14 @@ def main(argv: list[str] | None = None) -> None:
     if eval_file.exists():
         metrics.update(json.loads(eval_file.read_text()))
 
-    kind = "vocoder" if args.stage == 2 else "specgan"
+    if args.stage == 2:  # a codec run exports DAC's codec
+        codec = cfg.vocoder.block == "codec"
+        kind, section = (("codec", cfg.codec) if codec
+                         else ("vocoder", cfg.vocoder))
+    else:
+        kind, section = "specgan", cfg.specgan
     out = zoo.save_pretrained(
-        args.name, kind, params,
-        cfg.vocoder if args.stage == 2 else cfg.specgan,
+        args.name, kind, params, section,
         frontend=cfg.frontend, mel_scaler=mel_scaler, metrics=metrics,
         notes=args.notes or f"{which} generator from {run} @ step {state.step}",
         **({"root": args.root} if args.root else {}))

@@ -38,12 +38,13 @@ import time
 
 import numpy as np
 import torch
-from torch.func import functional_call
 
 from music_synthesis_tpu_torch.config import (
     BIGVGAN_22K_80BAND,
+    DAC_44K,
     TINY,
     TINY_BIGVGAN,
+    TINY_DAC,
     PipelineConfig,
 )
 from music_synthesis_tpu_torch.parallel.dp import make_dp_stage2_step
@@ -68,7 +69,8 @@ from music_synthesis_tpu_torch.utils.wav import write_wav
 
 #: ``--preset``'s base configurations.
 PRESETS = {"default": PipelineConfig(), "tiny": TINY,
-           "bigvgan": BIGVGAN_22K_80BAND, "tiny-bigvgan": TINY_BIGVGAN}
+           "bigvgan": BIGVGAN_22K_80BAND, "tiny-bigvgan": TINY_BIGVGAN,
+           "dac44k": DAC_44K, "tiny-dac44k": TINY_DAC}
 
 
 def parser() -> argparse.ArgumentParser:
@@ -92,7 +94,8 @@ def parser() -> argparse.ArgumentParser:
                     help="'tiny' = small models for smoke runs / CPU; "
                          "'bigvgan' = BigVGAN's 22 kHz 80-band generator "
                          "(config.BIGVGAN_22K_80BAND), 'tiny-bigvgan' its "
-                         "small twin")
+                         "small twin; 'dac44k' = DAC's 44.1 kHz codec "
+                         "(config.DAC_44K), 'tiny-dac44k' its small twin")
     ap.add_argument("--head", choices=["waveform", "istft"], default="waveform",
                     help="vocoder output head")
     ap.add_argument("--grad-clip", type=float, default=0.0,
@@ -217,12 +220,15 @@ def main(argv: list[str] | None = None) -> None:
     args = ap.parse_args(argv)
     check_mesh(ap, args)
     cfg = config_from_args(args)
-    if cfg.frontend.n_mels != cfg.vocoder.n_mels:
-        ap.error(f"frontend.n_mels ({cfg.frontend.n_mels}) != vocoder.n_mels "
-                 f"({cfg.vocoder.n_mels}); the conditioning would not fit")
-    if cfg.vocoder.hop_length != cfg.frontend.hop_length:
-        ap.error(f"vocoder total upsampling ({cfg.vocoder.hop_length}) must "
-                 f"equal the front-end hop ({cfg.frontend.hop_length})")
+    if not stage2.is_codec(cfg):  # a codec takes the waveform itself
+        if cfg.frontend.n_mels != cfg.vocoder.n_mels:
+            ap.error(f"frontend.n_mels ({cfg.frontend.n_mels}) != "
+                     f"vocoder.n_mels ({cfg.vocoder.n_mels}); the "
+                     "conditioning would not fit")
+        if cfg.vocoder.hop_length != cfg.frontend.hop_length:
+            ap.error(f"vocoder total upsampling ({cfg.vocoder.hop_length}) "
+                     f"must equal the front-end hop "
+                     f"({cfg.frontend.hop_length})")
     if args.pallas_frontend and args.mesh > 1 and args.dp == "jit":
         sys.exit("--pallas-frontend with --mesh > 1 requires --dp shard_map "
                  "(pallas_call has no SPMD partitioning rule under jit "
@@ -246,8 +252,9 @@ def _train(ap, args, cfg: PipelineConfig, dev: torch.device, group) -> None:
     k = max(1, args.steps_per_dispatch)
     cfg, ds, outdir = prepare_run(args, cfg, cfg.train.segment_length, dev)
 
-    run = Run(args, outdir, guard_keys=("d_loss", "g_adv", "g_stft"),
-              group=group)
+    run = Run(args, outdir, guard_keys=(
+        "d_loss", "g_adv", "g_mel" if cfg.train.lambda_mel > 0 else "g_stft"),
+        group=group)
     state = run.resume(stage2.make_train_state(cfg, cfg.train.seed, dev), dev)
     if group is None:
         step_one = functools.partial(stage2.train_step, cfg)
@@ -269,9 +276,7 @@ def _train(ap, args, cfg: PipelineConfig, dev: torch.device, group) -> None:
         deployment serves) when there is one."""
         g = state.g_ema if state.g_ema is not None else state.g_params
         raw = ds.sample_batch(step, 1, cfg.train.seed)
-        with torch.no_grad():
-            mel = stage2.conditioning_mel(torch.from_numpy(raw).to(dev), cfg)
-            fake = functional_call(gen, g, (mel,))
+        fake = stage2.generate(cfg, gen, g, torch.from_numpy(raw).to(dev))
         sr = cfg.frontend.sample_rate
         write_wav(outdir / f"vocoded_{step + 1:07d}.wav", sr,
                   fake[0].float().cpu().numpy())

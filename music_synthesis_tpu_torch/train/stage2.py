@@ -32,6 +32,18 @@ forward's output; under a group each gradient's all-reduce is the region
 a replay is in the engine's spans ``step.draws``, ``step.inputs`` and
 ``step.read``, and ``graph.launch``.
 
+With ``cfg.vocoder.block == "codec"`` G is DAC's codec
+(``models/codec.py``): it takes the waveform itself and the per-row count
+of quantizer stages each row keeps (quantizer dropout, drawn with the
+instance noise in ``_draws`` and handed to G as an input, so G draws
+nothing), and its commitment and codebook losses join G's loss. DAC's
+objective is the config's too: LSGAN, summed feature matching, the
+multi-scale mel loss (``losses/mel_loss.py``, ``lambda_mel``), a clip per
+player, AdamW. G's reported reconstruction term is the mel loss where
+``lambda_mel`` weights it, and the multi-resolution STFT distance
+otherwise, computed and reported then at any ``lambda_stft``; beside the
+mel loss the STFT term is computed only at ``lambda_stft`` > 0.
+
 The conditioning mel is computed inside the step, with no gradient: with
 ``cfg.train.use_pallas_frontend`` by the fused log-mel kernel
 (``ops/logmel.py``; the kernel on the card, its plain version on the CPU),
@@ -72,8 +84,10 @@ from music_synthesis_tpu_torch.losses.gan import (
     feature_matching_loss,
     g_loss_fn,
 )
+from music_synthesis_tpu_torch.losses.mel_loss import multiscale_mel_loss
 from music_synthesis_tpu_torch.losses.phase_loss import phase_coherence_loss
 from music_synthesis_tpu_torch.losses.stft_loss import multires_stft_loss
+from music_synthesis_tpu_torch.models.codec import Codec
 from music_synthesis_tpu_torch.models.discriminators import (
     CombinedDiscriminator,
 )
@@ -100,15 +114,24 @@ from music_synthesis_tpu_torch.train.state import (
 )
 from music_synthesis_tpu_torch.utils.profiling import region
 
-__all__ = ["make_models", "conditioning_mel", "make_train_state", "stage",
-           "GraphedStep", "graphed_step", "train_step", "train_step_many"]
+__all__ = ["make_models", "is_codec", "conditioning_mel", "generate",
+           "make_train_state", "stage", "GraphedStep", "graphed_step",
+           "train_step", "train_step_many"]
+
+
+def is_codec(cfg: PipelineConfig) -> bool:
+    """Whether G is DAC's codec (``vocoder.block == "codec"``)."""
+    return cfg.vocoder.block == "codec"
 
 
 def make_models(cfg: PipelineConfig,
                 generator: torch.Generator | None = None):
-    """The vocoder G and the combined MSD+MRD D of ``cfg``."""
-    return (Vocoder(cfg.vocoder, generator),
-            CombinedDiscriminator(cfg.msd, cfg.mrd, generator))
+    """G (the vocoder, or the codec of ``cfg.codec``) and the combined D
+    of ``cfg``."""
+    gen = (Codec(cfg.codec, generator) if is_codec(cfg)
+           else Vocoder(cfg.vocoder, generator))
+    return gen, CombinedDiscriminator(cfg.msd, cfg.mrd, generator, cfg.mpd,
+                                      cfg.train.d_input_peak)
 
 
 @functools.lru_cache(maxsize=8)
@@ -128,6 +151,17 @@ def conditioning_mel(wav: torch.Tensor, cfg: PipelineConfig,
         else:
             mel = log_mel_for_vocoder(wav, cfg.frontend)
         return (mel - cfg.mel_scaler.shift) / cfg.mel_scaler.scale
+
+
+def generate(cfg: PipelineConfig, gen, params: dict, wav: torch.Tensor
+             ) -> torch.Tensor:
+    """G's waveform for the real batch ``wav [B, L]``, no gradient: the
+    codec's resynthesis with every quantizer stage, or the vocoder's of
+    the conditioning mel."""
+    with torch.no_grad():
+        if is_codec(cfg):
+            return functional_call(gen, params, (wav,))[0]
+        return functional_call(gen, params, (conditioning_mel(wav, cfg),))
 
 
 def make_train_state(cfg: PipelineConfig, seed: int | None = None,
@@ -151,19 +185,30 @@ def _gate_open(cfg: PipelineConfig, step: int) -> bool:
 
 
 def _draws(cfg: PipelineConfig, state: GANState, dev: torch.device, shape,
-           noise=None, group=None, dp: str = "shard_map"):
-    """``(rng, noise)``: with instance noise the step's three normals of
-    the batch's ``shape`` on ``dev``, drawn from a copy of ``state.rng``
-    (returned, advanced) where not given; ``noise`` is ``()`` without
-    it."""
+           noise=None, keep=None, group=None, dp: str = "shard_map"):
+    """``(rng, draws)``, drawn from a copy of ``state.rng`` (returned,
+    advanced) where not given: with instance noise the step's three
+    normals of the batch's ``shape`` on ``dev`` (or ``noise``); for a codec
+    then the quantizer stages each row keeps, ``[B]`` fp32 (or ``keep``):
+    the first ``int(B * quantizer_dropout)`` rows a uniform draw of 1 ..
+    ``n_codebooks``, the others ``n_codebooks``."""
     rng = _copy_generator(state.rng)
-    if cfg.train.d_input_noise <= 0:
-        return rng, ()
-    if noise is None:
-        draws = Draws(rng, group, dp)
-        noise = [draws.normal(shape) for _ in range(3)]
-    return rng, tuple(torch.as_tensor(n, dtype=torch.float32, device=dev)
-                      for n in noise)
+    draws = Draws(rng, group, dp)
+    out = ()
+    if cfg.train.d_input_noise > 0:
+        if noise is None:
+            noise = [draws.normal(shape) for _ in range(3)]
+        out = tuple(torch.as_tensor(n, dtype=torch.float32, device=dev)
+                    for n in noise)
+    if is_codec(cfg):
+        if keep is None:
+            n, b = cfg.codec.n_codebooks, shape[0]
+            drop = torch.arange(b, device=dev) < int(
+                b * cfg.codec.quantizer_dropout)
+            drawn = 1.0 + torch.floor(draws.uniform((b,)) * n)
+            keep = torch.where(drop, drawn, torch.full_like(drawn, n))
+        out += (torch.as_tensor(keep, dtype=torch.float32, device=dev),)
+    return rng, out
 
 
 def _scalars(cfg: PipelineConfig, state: GANState) -> list[float]:
@@ -178,36 +223,45 @@ def _scalars(cfg: PipelineConfig, state: GANState) -> list[float]:
 
 
 def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
-            noise: tuple, scalars, precision: str, group=None,
+            draws: tuple, scalars, precision: str, group=None,
             dp: str = "shard_map"):
-    """The step's arithmetic on given draws and ``_scalars`` (floats, or
-    0-d fp32 tensors): ``(g_params, d_params, g_opt, d_opt, g_ema,
-    metrics)``, new tensors; nothing is changed in place. No value is read
-    back to the host and nothing branches on the step, so both sides of
-    the warmup gate are one program."""
+    """The step's arithmetic on given draws (``_draws``') and ``_scalars``
+    (floats, or 0-d fp32 tensors): ``(g_params, d_params, g_opt, d_opt,
+    g_ema, metrics)``, new tensors; nothing is changed in place. No value
+    is read back to the host and nothing branches on the step, so both
+    sides of the warmup gate are one program."""
     t = cfg.train
+    codec = is_codec(cfg)
     gen, disc = _modules(cfg)
-    g_tx, d_tx = make_optimizer(t.g_lr, t), make_optimizer(t.d_lr, t)
+    g_tx = make_optimizer(t.g_lr, t, t.g_grad_clip_norm)
+    d_tx = make_optimizer(t.d_lr, t, t.d_grad_clip_norm)
     sigma, gate = scalars[0], scalars[1]
     g_scalars, d_scalars = scalars[2:5], scalars[5:8]
     dev = wav.device
     b = wav.shape[0]
 
-    with region("frontend"):
-        mel = conditioning_mel(wav, cfg, precision)
+    if codec:
+        *noise, keep = draws
+        g_args = (wav, keep)
+    else:
+        noise = draws
+        with region("frontend"):
+            g_args = (conditioning_mel(wav, cfg, precision),)
     g_names = list(state.g_params)
     g_leaves = [p.detach().requires_grad_() for p in state.g_params.values()]
     g_in = dict(zip(g_names, g_leaves))
 
-    def run_g(x):
-        return functional_call(gen, g_in, (x,))
+    def run_g(*x):
+        return functional_call(gen, g_in, x)
 
     with region("generator_fwd"):
         # G draws nothing, so the recomputation needs no RNG state (whose
         # stash a CUDA graph's capture would refuse).
-        fake = (checkpoint(run_g, mel, use_reentrant=False,
+        fake = (checkpoint(run_g, *g_args, use_reentrant=False,
                            preserve_rng_state=False)
-                if t.remat_generator else run_g(mel))
+                if t.remat_generator else run_g(*g_args))
+    if codec:
+        fake, commitment, codebook = fake
     fake_sg = fake.detach()
 
     # Instance noise: three normals, the third reused (with gradients) on
@@ -258,7 +312,7 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
                 d_grads = mesh.all_reduce_mean(d_grads, group)
         d_grad_norm = global_norm(d_grads)
         d_updates, d_opt = d_tx.update(dict(zip(d_names, d_grads)),
-                                      state.d_opt, d_scalars)
+                                      state.d_opt, d_scalars, state.d_params)
         if t.g_warmup_steps > 0:
             # Warmup gate: D's update masked, its Adam moments kept.
             d_updates = torch._foreach_mul(d_updates, gate)
@@ -290,12 +344,25 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
                 _, real_feats_g = functional_call(disc, d_params, (wav,))
         with region("losses"):
             adv = g_loss_fn(t.gan_loss)(fake_logits)
-            fm = feature_matching_loss(real_feats_g, fake_feats)
-            stft = multires_stft_loss(fake, wav, cfg.stft_loss, group)
+            fm = feature_matching_loss(real_feats_g, fake_feats,
+                                       t.feature_matching)
             adv_w = gate if t.g_warmup_steps > 0 else 1.0
-            total = (adv_w * (adv + t.lambda_feature_matching * fm)
-                     + t.lambda_stft * stft)
-            aux = {"g_adv": adv, "g_fm": fm, "g_stft": stft}
+            total = adv_w * (adv + t.lambda_feature_matching * fm)
+            aux = {"g_adv": adv, "g_fm": fm}
+            if t.lambda_stft > 0 or t.lambda_mel == 0:
+                stft = multires_stft_loss(fake, wav, cfg.stft_loss, group)
+                total = total + t.lambda_stft * stft
+                aux["g_stft"] = stft
+            if t.lambda_mel > 0:
+                mel_l1 = multiscale_mel_loss(fake, wav,
+                                             cfg.frontend.sample_rate)
+                total = total + t.lambda_mel * mel_l1
+                aux["g_mel"] = mel_l1
+            if codec:
+                total = (total + t.lambda_commitment * commitment
+                         + t.lambda_codebook * codebook)
+                aux["g_commitment"] = commitment
+                aux["g_codebook"] = codebook
             if t.lambda_energy > 0:
                 hop = cfg.frontend.hop_length
                 energy = torch.mean(torch.abs(_frame_rms(fake, hop)
@@ -313,7 +380,7 @@ def _update(cfg: PipelineConfig, state: GANState, wav: torch.Tensor,
                 g_grads = mesh.all_reduce_mean(g_grads, group)
         g_grad_norm = global_norm(g_grads)
         g_updates, g_opt = g_tx.update(dict(zip(g_names, g_grads)),
-                                       state.g_opt, g_scalars)
+                                       state.g_opt, g_scalars, state.g_params)
         g_update_norm = global_norm(g_updates)
         g_params = dict(zip(g_names, torch._foreach_add(
             list(state.g_params.values()), g_updates)))
@@ -378,12 +445,15 @@ def graphed_step(cfg: PipelineConfig, shape, device: torch.device,
 
 def train_step(cfg: PipelineConfig, state: GANState, wav,
                noise=None, precision: str = "fast", group=None,
-               dp: str = "shard_map") -> tuple[GANState, dict[str, float]]:
+               dp: str = "shard_map", keep=None
+               ) -> tuple[GANState, dict[str, float]]:
     """One alternating D/G update on a waveform batch ``[B, L]``.
 
     ``noise``: the three standard-normal ``[B, L]`` realisations of the
     instance noise (tensors or arrays), in place of draws from
     ``state.rng``; used only when ``cfg.train.d_input_noise > 0``.
+    ``keep``: for a codec, the quantizer stages each row keeps ``[B]``, in
+    place of the quantizer-dropout draw.
     ``precision``: the fused log-mel kernel's mode ("fast" or "exact").
     ``group``: the process group of a data-parallel step, whose rank holds
     ``wav`` (and ``noise``) as its rows of the global batch; ``dp`` says
@@ -396,7 +466,7 @@ def train_step(cfg: PipelineConfig, state: GANState, wav,
     group, the step runs eagerly and returns new tensors.
     """
     new_state, metrics = run_step(stage(precision), cfg, state, wav,
-                                  {"noise": noise}, group, dp)
+                                  {"noise": noise, "keep": keep}, group, dp)
     return new_state, _floats(metrics)
 
 

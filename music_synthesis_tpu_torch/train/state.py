@@ -10,7 +10,11 @@ instance noise. The modules themselves are not in the state
 
 ``Adam`` reproduces ``optax.adam`` (with ``clip_by_global_norm`` first when
 ``grad_clip_norm > 0`` and ``exponential_decay`` when ``lr_decay_rate <
-1``) operation for operation, in fp32, with ``torch._foreach_*``. The step
+1``) operation for operation, in fp32, with ``torch._foreach_*``; with
+``weight_decay > 0`` it is AdamW (``torch.optim.AdamW``'s decoupled decay,
+``-lr * weight_decay * param`` added to each update), and a player's own
+clip (``g_grad_clip_norm``, ``d_grad_clip_norm``) takes
+``grad_clip_norm``'s place for it. The step
 and Adam counts are host integers, so the warmup gate, the learning-rate
 schedule and the bias corrections cost no device synchronisation; the
 scalars they give are rounded to fp32 as optax computes them
@@ -91,16 +95,19 @@ def _f32(x) -> float:
 
 class Adam:
     """``optax.adam(lr, b1, b2)`` (eps 1e-8 outside the square root), with
-    the config's optional clip and continuous exponential lr decay."""
+    the config's optional clip (``clip`` in place of ``grad_clip_norm`` when
+    given and positive), continuous exponential lr decay and decoupled
+    weight decay."""
 
     eps = 1e-8
 
-    def __init__(self, lr: float, cfg: TrainConfig):
+    def __init__(self, lr: float, cfg: TrainConfig, clip: float = 0.0):
         self.lr = lr
         self.b1, self.b2 = cfg.adam_b1, cfg.adam_b2
         self.decay_rate = cfg.lr_decay_rate
         self.decay_every = max(cfg.lr_decay_every, 1)
-        self.clip = cfg.grad_clip_norm
+        self.clip = clip if clip > 0 else cfg.grad_clip_norm
+        self.weight_decay = cfg.weight_decay
 
     def init(self, params: dict[str, torch.Tensor]) -> AdamState:
         return AdamState(
@@ -128,12 +135,14 @@ class Adam:
                 _f32(np.float32(1.0) - b2 ** t))
 
     def update(self, named_grads: dict[str, torch.Tensor], state: AdamState,
-               scalars=None) -> tuple[list[torch.Tensor], AdamState]:
+               scalars=None, params: dict[str, torch.Tensor] | None = None
+               ) -> tuple[list[torch.Tensor], AdamState]:
         """``(updates, new_state)``: the updates in ``named_grads``' order,
         already carrying ``-lr``. Nothing is changed in place. ``scalars``:
         ``self.scalars(state.count)``, as floats or 0-d fp32 tensors (a
         captured step reads them from the device), computed here if not
-        given."""
+        given. ``params``: the parameters the updates apply to, which the
+        weight decay needs."""
         names = list(named_grads)
         grads = list(named_grads.values())
         if self.clip > 0:
@@ -152,6 +161,9 @@ class Adam:
         denom = torch._foreach_sqrt(_div(nu, bc2))
         torch._foreach_add_(denom, self.eps)
         updates = torch._foreach_div(_div(mu, bc1), denom)
+        if self.weight_decay > 0:
+            torch._foreach_add_(updates, torch._foreach_mul(
+                [params[k] for k in names], self.weight_decay))
         torch._foreach_mul_(updates, -lr)
         return updates, AdamState(state.count + 1, dict(zip(names, mu)),
                                   dict(zip(names, nu)))
@@ -168,9 +180,11 @@ def _div(tensors: list[torch.Tensor], scalar) -> list[torch.Tensor]:
     return torch._foreach_div(tensors, scalar)
 
 
-def make_optimizer(lr: float, cfg: TrainConfig) -> Adam:
-    """Adam with the GAN betas of ``cfg`` (0.5, 0.9 by default)."""
-    return Adam(lr, cfg)
+def make_optimizer(lr: float, cfg: TrainConfig, clip: float = 0.0) -> Adam:
+    """Adam with the GAN betas of ``cfg`` (0.5, 0.9 by default); ``clip``,
+    a player's own clip, in place of ``cfg.grad_clip_norm`` when
+    positive."""
+    return Adam(lr, cfg, clip)
 
 
 def state_groups(state: GANState) -> list[dict[str, torch.Tensor]]:
@@ -223,8 +237,9 @@ def _copy_generator(rng: torch.Generator) -> torch.Generator:
 
 
 class Draws:
-    """The step's random normals, ``normal(shape)`` for this rank's
-    ``shape``: from ``rng`` in a single process; under ``group`` with
+    """The step's random draws, ``normal(shape)`` (standard normals) and
+    ``uniform(shape)`` (in [0, 1)) for this rank's ``shape``: from ``rng``
+    in a single process; under ``group`` with
     ``dp="jit"`` the global batch's rows from ``rng`` (the same on every
     rank), this rank's kept; with ``dp="shard_map"`` from a generator of
     this rank's own, seeded (at the first draw) from one draw of ``rng``
@@ -238,13 +253,19 @@ class Draws:
         self._own = None
 
     def normal(self, shape) -> torch.Tensor:
+        return self._draw(torch.randn, shape)
+
+    def uniform(self, shape) -> torch.Tensor:
+        return self._draw(torch.rand, shape)
+
+    def _draw(self, fn, shape) -> torch.Tensor:
         dev = self.rng.device
         if self.group is None:
-            return torch.randn(shape, generator=self.rng, device=dev)
+            return fn(shape, generator=self.rng, device=dev)
         if self.dp == "jit":
             n = mesh.world_size(self.group)
-            full = torch.randn((shape[0] * n, *shape[1:]),
-                               generator=self.rng, device=dev)
+            full = fn((shape[0] * n, *shape[1:]), generator=self.rng,
+                      device=dev)
             return mesh.shard_batch(full, self.group)
         if self._own is None:
             seed = int(torch.randint(0, 2 ** 62, (1,), generator=self.rng,
@@ -252,7 +273,7 @@ class Draws:
             r = mesh.rank(self.group) + 1
             self._own = torch.Generator(device=dev).manual_seed(
                 (seed + 0x9E3779B97F4A7C15 * r) % 2 ** 63)
-        return torch.randn(shape, generator=self._own, device=dev)
+        return fn(shape, generator=self._own, device=dev)
 
 
 def reduce_metrics(means: dict, fake2: torch.Tensor, real2: torch.Tensor,

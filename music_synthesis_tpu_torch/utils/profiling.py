@@ -31,8 +31,9 @@ themselves, unprofiled:
   ``unread``, and each of ``COUNTERS``, the calls its last capture
   issued, which each replay repeats: ``logmel_kernel``, the log-mel
   kernel's launches, ``grouped_wgrad2``, the second-order weight terms of
-  grouped convolutions, ``aa_act``, the anti-aliased activations, and
-  ``aa_act_kernel``, their kernel's launches) and a ring of its last
+  grouped convolutions, ``aa_act``, the anti-aliased activations,
+  ``aa_act_kernel``, their kernel's launches, ``snake``, DAC's Snake
+  calls, and ``rvq_stage``, its quantizer's stages) and a ring of its last
   ``RING`` replays are ``tracer.snapshot()``'s, with the process-wide
   counts under ``counters``.
 - **The tracer never synchronises.** A replay's device times are read at
@@ -132,10 +133,15 @@ def time_fn(fn: Callable, *args, warmup: int = 2, iters: int = 20) -> float:
 
 def step_regions(cfg, stage: int) -> list[str]:
     """The regions one training step of ``stage`` opens for ``cfg``, in
-    order: the ``jax.named_scope`` names the JAX step traces for it."""
+    order: the ``jax.named_scope`` names the JAX step traces for it (a
+    codec's G, which takes the waveform, has no ``frontend`` but its
+    quantizer's ``rvq``)."""
     t = cfg.train
-    names = ["frontend"] if stage == 2 else []
+    codec = stage == 2 and cfg.vocoder.block == "codec"
+    names = ["frontend"] if stage == 2 and not codec else []
     names.append("generator_fwd")
+    if codec:
+        names.append("rvq")
     names.append("d_step")
     if stage == 2 and t.concat_disc_batch:
         names.append("disc_both")

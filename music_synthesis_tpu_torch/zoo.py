@@ -23,6 +23,7 @@ from torch import nn
 
 from music_synthesis_tpu_torch import _msgpack
 from music_synthesis_tpu_torch.config import (
+    CodecConfig,
     FrontendConfig,
     MelScaler,
     SpecGANConfig,
@@ -37,14 +38,15 @@ __all__ = ["ZOO_ROOT", "PretrainedEntry", "save_pretrained", "load_pretrained",
 
 ZOO_ROOT = Path(__file__).resolve().parents[1] / "zoo"
 
-_KIND_TO_CONFIG = {"vocoder": VocoderConfig, "specgan": SpecGANConfig}
+_KIND_TO_CONFIG = {"vocoder": VocoderConfig, "specgan": SpecGANConfig,
+                   "codec": CodecConfig}
 
 
 @dataclasses.dataclass(frozen=True)
 class PretrainedEntry:
     name: str
-    kind: str  # "vocoder" | "specgan"
-    config: Any  # VocoderConfig | SpecGANConfig
+    kind: str  # "vocoder" | "specgan" | "codec" (the port's: DAC)
+    config: Any  # VocoderConfig | SpecGANConfig | CodecConfig
     state_dict: dict[str, torch.Tensor]
     frontend: FrontendConfig | None
     mel_scaler: MelScaler | None
@@ -54,13 +56,15 @@ class PretrainedEntry:
               compute_dtype: str | None = None) -> nn.Module:
         """The entry's module with its weights, on ``device``, in eval mode.
         ``compute_dtype`` overrides the card's activation dtype."""
+        from music_synthesis_tpu_torch.models.codec import Codec
         from music_synthesis_tpu_torch.models.specgan import SpectrogramGenerator
         from music_synthesis_tpu_torch.models.vocoder import Vocoder
 
         cfg = self.config
         if compute_dtype is not None:
             cfg = dataclasses.replace(cfg, compute_dtype=compute_dtype)
-        cls = Vocoder if self.kind == "vocoder" else SpectrogramGenerator
+        cls = {"vocoder": Vocoder, "specgan": SpectrogramGenerator,
+               "codec": Codec}[self.kind]
         module = cls(cfg)
         module.load_state_dict(self.state_dict, strict=True)
         return module.to(device).eval().requires_grad_(False)

@@ -333,3 +333,147 @@ def test_other_vocoders_compute_what_they_computed(which, monkeypatch):
     with torch.no_grad():
         assert torch.equal(port(mel), frozen(mel))
     assert alias_free.aa_act.n_calls == before
+
+
+# -- the stage-2 objective and Adam as they were before DAC's codec came
+# in (the port's losses/gan.py and train/state.py::Adam.update), frozen:
+# the other configurations' D, losses and updates must stay bit for bit.
+
+def _frozen_d_loss(kind, real, fake):
+    loss = 0.0
+    for r, f in zip(real, fake):
+        if kind == "hinge":
+            loss = (loss + torch.mean(torch.nn.functional.relu(1.0 - r))
+                    + torch.mean(torch.nn.functional.relu(1.0 + f)))
+        else:
+            loss = (loss + torch.mean(torch.nn.functional.softplus(-r))
+                    + torch.mean(torch.nn.functional.softplus(f)))
+    return loss
+
+
+def _frozen_g_loss(kind, fake):
+    loss = 0.0
+    for f in fake:
+        loss = (loss - torch.mean(f) if kind == "hinge" else
+                loss + torch.mean(torch.nn.functional.softplus(-f)))
+    return loss
+
+
+def _frozen_fm(real, fake):
+    loss, n = 0.0, 0
+    for r_head, f_head in zip(real, fake):
+        for r, f in zip(r_head, f_head):
+            loss = loss + torch.mean(torch.abs(f - r.detach()))
+            n += 1
+    return loss / max(n, 1)
+
+
+def _frozen_adam(opt, named_grads, state, scalars):
+    names, grads = list(named_grads), list(named_grads.values())
+    if opt.clip > 0:
+        norm = torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(grads)))
+        keep = norm < opt.clip
+        grads = [torch.where(keep, g, g / norm * opt.clip) for g in grads]
+    b1, b2 = opt.b1, opt.b2
+    mu = torch._foreach_add(torch._foreach_mul(grads, 1.0 - b1),
+                            torch._foreach_mul([state.mu[k] for k in names],
+                                               b1))
+    nu = torch._foreach_add(
+        torch._foreach_mul(torch._foreach_mul(grads, grads), 1.0 - b2),
+        torch._foreach_mul([state.nu[k] for k in names], b2))
+    lr, bc1, bc2 = scalars
+    denom = torch._foreach_sqrt(torch._foreach_div(nu, bc2))
+    torch._foreach_add_(denom, opt.eps)
+    updates = torch._foreach_div(torch._foreach_div(mu, bc1), denom)
+    torch._foreach_mul_(updates, -lr)
+    return updates, mu, nu
+
+
+def _recipe(name: str):
+    """``name``'s benchmark recipe (its train section, its D and G
+    settings) at TINY's widths, grouped convolutions run as grouped (the
+    frozen D has no dense lowering)."""
+    import json
+
+    src = json.loads((ROOT / "benchmark" / "configs" / f"{name}.json")
+                     .read_text())["train"]
+    base = config.TINY_BIGVGAN if name == "bigvgan" else config.TINY
+    voc = dataclasses.replace(base.vocoder, **{
+        k: src["vocoder"][k] for k in ("head", "init_scheme",
+                                       "res_init_gain", "out_init_gain")})
+    if voc.head == "istft":
+        voc = dataclasses.replace(voc, upsample_factors=(8, 8))
+    train = config.section_from_dict(config.TrainConfig, {
+        **src["train"], "batch_size": 2, "segment_length": 2048})
+    return dataclasses.replace(
+        base, vocoder=voc, train=train,
+        msd=dataclasses.replace(base.msd, dense_groups_max_g=0),
+        mrd=dataclasses.replace(base.mrd,
+                                input_mode=src["mrd"]["input_mode"]))
+
+
+@pytest.mark.parametrize("name", ["flagship", "rich", "bigvgan"])
+def test_other_configurations_keep_their_d_losses_and_adam(name):
+    """flagship's, rich's and BigVGAN's recipes at TINY's widths: their G
+    and D keep the parameter names of the benchmark's frozen models (so
+    zoo cards and states load), and D's logits and features, the step's
+    losses (D's, G's adversarial term, feature matching) and Adam's
+    update of both players (the updated parameters and moments) are bit
+    for bit those of the objective and Adam before the codec came in."""
+    from harness.config import ns
+    from music_synthesis_tpu_torch.losses import gan
+    from music_synthesis_tpu_torch.train.state import make_optimizer
+    from reference.model import CombinedDiscriminator as FrozenD
+    from reference.model import Vocoder as FrozenG
+
+    cfg = _recipe(name)
+    t = cfg.train
+    rc = ns(config.config_to_dict(cfg))
+    g, d = stage2.make_models(cfg, torch.Generator().manual_seed(11))
+    frozen_g = (ref.BigVGAN(rc.vocoder) if name == "bigvgan"
+                else FrozenG(rc.vocoder))
+    frozen_d = FrozenD(rc.msd, rc.mrd)
+    assert [k for k, _ in g.named_parameters()] == [
+        k for k, _ in frozen_g.named_parameters()]
+    assert [k for k, _ in d.named_parameters()] == [
+        k for k, _ in frozen_d.named_parameters()]
+    frozen_d.load_state_dict(d.state_dict())
+    gen = torch.Generator().manual_seed(12)
+    real, fake = (0.5 * torch.tanh(torch.randn(2, 2048, generator=gen))
+                  for _ in range(2))
+    outs = {}
+    for side, disc in (("port", d), ("frozen", frozen_d)):
+        rl, rf = disc(real)
+        fl, ff = disc(fake)
+        outs[side] = rl, rf, fl, ff
+    for a, b in zip(outs["port"], outs["frozen"]):
+        for x, y in zip(a, b):
+            for u, v in (zip(x, y) if isinstance(x, list) else [(x, y)]):
+                assert torch.equal(u, v)
+    rl, rf, fl, ff = outs["port"]
+    d_loss = gan.d_loss_fn(t.gan_loss)(rl, fl)
+    assert torch.equal(d_loss, _frozen_d_loss(t.gan_loss, rl, fl))
+    assert torch.equal(gan.g_loss_fn(t.gan_loss)(fl),
+                       _frozen_g_loss(t.gan_loss, fl))
+    fm = gan.feature_matching_loss(rf, ff, t.feature_matching)
+    assert torch.equal(fm, _frozen_fm(rf, ff))
+    fl_g, ff_g = d(g(stage2.conditioning_mel(real, cfg)))
+    g_loss = (gan.g_loss_fn(t.gan_loss)(fl_g)
+              + gan.feature_matching_loss(rf, ff_g, t.feature_matching))
+    for player, module, lr, loss in (("d", d, t.d_lr, d_loss),
+                                     ("g", g, t.g_lr, g_loss)):
+        params = dict(module.named_parameters())
+        grads = dict(zip(params, torch.autograd.grad(
+            loss, list(params.values()), retain_graph=True)))
+        opt = make_optimizer(lr, t, getattr(t, f"{player}_grad_clip_norm"))
+        state = AdamState(7, *({k: 0.01 * torch.randn(
+            v.shape, generator=gen) ** 2 for k, v in params.items()}
+            for _ in range(2)))
+        scalars = opt.scalars(state.count)
+        updates, new = opt.update(grads, state, scalars, params)
+        want, mu, nu = _frozen_adam(opt, grads, state, scalars)
+        for k, a, b in zip(params, updates, want):
+            assert torch.equal(a, b), k
+            assert torch.equal(new.mu[k], mu[list(params).index(k)])
+            assert torch.equal(new.nu[k], nu[list(params).index(k)])

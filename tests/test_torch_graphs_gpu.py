@@ -25,8 +25,9 @@ flagship and rich configurations: 6 second-order weight terms of grouped
 convolutions per capture and replay in the flagship's (R1), none in
 rich's; BigVGAN's 109 anti-aliased activations per capture and replay,
 each timed in every replay (``aa_act.fwd``, ``aa_act.bwd``) and each
-three launches of its kernel, and none in rich's. The stage-2 shard_map
-step over four NCCL ranks on four cards
+three launches of its kernel, and none in rich's; DAC's 58 Snake calls
+and 9 quantizer stages per replay, and none in the other vocoders'. The
+stage-2 shard_map step over four NCCL ranks on four cards
 (skipped with fewer) against the single-process step on the
 concatenated batch. The same flagship step under a one-rank NCCL
 group in this process (a real ``ProcessGroupNCCL``, whose collectives the
@@ -598,6 +599,39 @@ def test_graphed_stage2_step_counts_anti_aliased_activations(cuda, tracing,
         assert (ms.get(region, 0.0) > 0) == (acts > 0), ms
     if acts:
         assert ms["g_step"] > ms["aa_act.bwd"]
+
+
+@pytest.mark.parametrize("name,snakes,stages", [
+    ("dac44k", 58, 9), ("bigvgan", 0, 0), ("rich", 0, 0), ("flagship", 0, 0)])
+def test_graphed_stage2_step_counts_snakes_and_quantizer_stages(
+        cuda, tracing, name, snakes, stages):
+    """DAC's capture issues 58 Snake calls (each with its regions
+    ``snake.fwd`` and ``snake.bwd`` in every replay's record) and 9
+    quantizer stages (the region ``rvq``) per G pass at the published
+    widths; the other vocoders' none. Each replay adds them to the
+    process-wide counts."""
+    from music_synthesis_tpu_torch.models.codec import rvq_stage
+    from music_synthesis_tpu_torch.ops.snake import snake_calls
+
+    raw = json.loads((REPO / "benchmark" / "configs" / f"{name}.json"
+                      ).read_text())
+    cfg = config.config_from_dict(raw["train"])
+    cfg = dataclasses.replace(cfg, train=dataclasses.replace(
+        cfg.train, batch_size=2))
+    state = stage2.make_train_state(cfg, seed=0, device=cuda)
+    wav = _wav((2, cfg.train.segment_length), cuda)
+    state, _ = stage2.train_step(cfg, state, wav)  # builds, then replays
+    before = snake_calls.n_calls, rvq_stage.n_calls
+    for _ in range(2):
+        state, _ = stage2.train_step(cfg, state, wav)
+    assert snake_calls.n_calls - before[0] == 2 * snakes
+    assert rvq_stage.n_calls - before[1] == 2 * stages
+    snap = tracing.snapshot()
+    log = snap["programs"]["stage2_step"]
+    assert log["snake"] == snakes and log["rvq_stage"] == stages
+    ms = log["records"][-1]["region_ms"]
+    for region in ("snake.fwd", "snake.bwd", "rvq"):
+        assert (ms.get(region, 0.0) > 0) == (snakes > 0), ms
 
 
 def test_stage2_shard_map_step_over_four_nccl_ranks(cuda, tmp_path):

@@ -14,9 +14,10 @@
   (``torch.cuda.synchronize`` and ``Event.synchronize`` raise).
 - The rings stay bounded, and ``set_tracing(False)`` records nothing; a
   replay while tracing is off leaves the record before it unread.
-- A ``span`` and a ``record_function`` over the same interval line up in
-  a CPU ``torch.profiler`` trace within 50 us, and the span's own ring
-  holds the same interval's length.
+- A ``span`` and a ``record_function`` over the same block nest in a CPU
+  ``torch.profiler`` trace around every operator the block ran, and the
+  span's own ring holds an interval between those operators' extent and
+  its own region's.
 - The training CLIs' ``trace.*`` keys (``scripts/_run.py``,
   ``Run.trace_keys``) on a stubbed snapshot: the medians of the replays
   since the last logged line when the tracer holds records, no key when
@@ -219,6 +220,13 @@ def test_regions_and_outputs_are_the_same_with_tracing_on_and_off(
 
 
 def test_span_lines_up_with_record_function(tracing):
+    """The span and a ``record_function`` around the same block bracket the
+    same work: in a CPU profiler trace the span's region encloses the
+    ``record_function``'s, which encloses every operator the block ran,
+    and the span's own ring holds an interval no shorter than those
+    operators' extent and no longer than its own region. Nesting, not
+    clock distances, so a worker's scheduling cannot move it."""
+    slack = 2.0  # us: the profiler's and perf_counter's clocks' rounding
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         with profiling.span("step.inputs"), \
@@ -226,13 +234,18 @@ def test_span_lines_up_with_record_function(tracing):
             t = time.perf_counter()
             while time.perf_counter() - t < 0.005:
                 torch.ones(64) @ torch.ones(64)
-    events = {e.name: e for e in prof.events() if e.name in (
-        "step.inputs", "same")}
-    s, r = events["step.inputs"], events["same"]
-    assert abs(s.time_range.start - r.time_range.start) < 50
-    assert abs(s.time_range.end - r.time_range.end) < 50
+    events = prof.events()
+    named = {e.name: e.time_range for e in events
+             if e.name in ("step.inputs", "same")}
+    s, r = named["step.inputs"], named["same"]
+    work = [e.time_range for e in events
+            if e.name in ("aten::ones", "aten::matmul")]
+    assert work
+    first, last = min(w.start for w in work), max(w.end for w in work)
+    assert s.start <= r.start <= first and last <= r.end <= s.end
     (t0, t1), = tracing.snapshot()["spans"]["step.inputs"]
-    assert abs((t1 - t0) / 1e3 - (s.time_range.end - s.time_range.start)) < 50
+    span_us = (t1 - t0) / 1e3
+    assert last - first - slack <= span_us <= s.end - s.start + slack
 
 
 def _record(replay, d, g, replay_ms, period_ms, launch_ms):

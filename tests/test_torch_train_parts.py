@@ -60,13 +60,19 @@ def test_every_run_config_loads_equal_to_jax():
         d = json.loads(path.read_text())
         want = jax_config.config_from_dict(d)
         got = config.config_from_dict(d)
-        port_only = config.PORT_ONLY[config.VocoderConfig]
-        defaults = config.VocoderConfig()
-        assert all(getattr(got.vocoder, k) == getattr(defaults, k)
-                   for k in port_only), path
+        # the port's own sections and fields hold their defaults
         got_d = dataclasses.asdict(got)
-        got_d["vocoder"] = {k: v for k, v in got_d["vocoder"].items()
-                            if k not in port_only}
+        for name in config.PORT_ONLY_SECTIONS:
+            assert getattr(got, name) == getattr(config.PipelineConfig(),
+                                                 name), path
+            del got_d[name]
+        for cls, port_only in config.PORT_ONLY.items():
+            name = next(f.name for f in dataclasses.fields(got)
+                        if isinstance(getattr(got, f.name), cls))
+            assert all(getattr(getattr(got, name), k) == getattr(cls(), k)
+                       for k in port_only), path
+            got_d[name] = {k: v for k, v in got_d[name].items()
+                           if k not in port_only}
         assert got_d == dataclasses.asdict(want), path
         assert config.config_to_dict(got) == jax_config.config_to_dict(want)
         assert config.config_from_dict(config.config_to_dict(got)) == got
@@ -89,7 +95,7 @@ def test_section_fields_and_defaults_equal_jax(section):
         return [(f.name, f.default)
                 for f in dataclasses.fields(getattr(mod, section))]
 
-    # The port's own fields (BigVGAN's) come after the JAX package's.
+    # The port's own fields (BigVGAN's, DAC's) come after the JAX package's.
     own = config.PORT_ONLY.get(getattr(config, section), ())
     got = fields(config)
     assert got[:len(got) - len(own)] == fields(jax_config)
